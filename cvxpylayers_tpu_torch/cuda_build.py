@@ -18,7 +18,7 @@ from typing import Dict, Iterable
 
 SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-KERNEL_SOURCES = ("admm_epoch",)
+KERNEL_SOURCES = ("admm_epoch", "house_qr")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -1,20 +1,23 @@
 """CvxpyLayer: the user-facing optimization layer, on torch tensors.
 
-Counterpart of cvxpylayers_tpu/layer/cvxpylayer.py, forward path:
+Counterpart of cvxpylayers_tpu/layer/cvxpylayer.py:
 
     layer = CvxpyLayer(problem, parameters=[A, b], variables=[x])
     (x_star,) = layer(A_val, b_val)            # torch tensors on the card
+    x_star.sum().backward()                    # gradients w.r.t. A_val, b_val
 
 The forward is parameter-affine data evaluation (one matmul or an
-index_add_), a dense scatter into batched (P, q, A, b), the batched ADMM
-+ Newton-polish solve, and slice/reshape recovery.
+index_add_), a dense scatter into batched (P, q, A, b), the batched
+solve (ADMM or the interior-point method, then the Newton polish), and
+slice/reshape recovery. Everything but the solve is plain differentiable
+torch; the solve carries the implicit-function adjoint
+(diff/derivative.py).
 
 Device contract: the layer runs on `device` ("cuda" unless the caller asks
 for another); it raises where CUDA is absent and never falls back to the
 CPU. Parameters must already lie on that device (a tensor elsewhere
 raises ValueError; nothing is copied silently). The dtype follows the
-inputs. Gradients arrive with the next port slice: inputs that require
-grad raise NotImplementedError until then.
+inputs.
 
 Batching semantics (the reference contract): each parameter may be
 passed with its exact shape (unbatched) or with one leading batch
@@ -281,6 +284,8 @@ class CvxpyLayer:
         # strictly-diagonal P: the f32 Schur split inverts it elementwise
         self._p_diag_only = bool(self._p_diag_full and diag_mask.all())
         self._solvers: Dict[SolverSettings, object] = {}
+        # eager warm-start cache (warm_start=True): the last (x, y, s)
+        self._warm: Optional[WarmStart] = None
 
     # ------------------------------------------------------------------ misc
 
@@ -336,12 +341,6 @@ class CvxpyLayer:
                 raise ValueError(
                     f"parameter {p.name} is on {arr.device}, the layer on "
                     f"{self.device}; move it there first"
-                )
-            if arr.requires_grad:
-                raise NotImplementedError(
-                    "gradients through the layer (the implicit-function "
-                    "adjoint) arrive with the next port slice; pass "
-                    f"parameter {p.name} without requires_grad or detach it"
                 )
             shape = tuple(arr.shape)
             if shape == p.shape:
@@ -483,23 +482,22 @@ class CvxpyLayer:
                         f"warm_start is on {t.device}, the layer on "
                         f"{self.device}"
                     )
-            x0, y0, s0 = (t.to(dtype) for t in warm_start)
-        elif warm_start:
-            raise NotImplementedError(
-                "the eager warm-start cache (warm_start=True) arrives with "
-                "a later port slice; pass the WarmStart that "
-                "solve_and_state returns"
-            )
+            x0, y0, s0 = (t.detach().to(dtype) for t in warm_start)
+        elif warm_start and self._warm is not None:
+            # eager cache: the previous call's solution, if it fits
+            if tuple(self._warm.x.shape) == (B, n):
+                x0, y0, s0 = (t.to(dtype) for t in self._warm)
 
+        # the assembly records an autograd graph; the solve is one
+        # autograd.Function with the implicit adjoint
         solver = self._solver(settings)
-        with torch.no_grad():
-            if settings.matmul_precision != "default":
-                with full_f32():
-                    P, q, A, b, _ = self._assemble(p_ext)
-                    x, y, s, status, iters = solver(P, q, A, b, x0, y0, s0)
-            else:
+        if settings.matmul_precision != "default":
+            with full_f32():
                 P, q, A, b, _ = self._assemble(p_ext)
                 x, y, s, status, iters = solver(P, q, A, b, x0, y0, s0)
+        else:
+            P, q, A, b, _ = self._assemble(p_ext)
+            x, y, s, status, iters = solver(P, q, A, b, x0, y0, s0)
 
         if self.verbose:
             st = status.cpu()
@@ -510,7 +508,9 @@ class CvxpyLayer:
                 f"max={int(it.max())}, worst status={int(st.max())}"
             )
 
-        next_ws = WarmStart(x=x, y=y, s=s)
+        next_ws = WarmStart(x=x.detach(), y=y.detach(), s=s.detach())
+        if warm_start is True:
+            self._warm = next_ws
         outs_b = self._recover(x, y)
         if batch is None:
             outs = tuple(o[0] for o in outs_b)

@@ -9,8 +9,8 @@ F(x, w) = 0 with
     F2 = A x + Pi_K(w) - b
 
 This one residual map powers the semismooth-Newton polish
-(solver/refine.py) and, in the next port slice, the implicit-function
-adjoint. Every array carries the batch axis first.
+(solver/refine.py) and the implicit-function adjoint
+(diff/derivative.py). Every array carries the batch axis first.
 """
 
 from __future__ import annotations

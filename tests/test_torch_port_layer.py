@@ -163,8 +163,11 @@ def test_warm_start_carries_across():
                                rtol=0)
     assert isinstance(ws_next, ct.WarmStart)
     assert ws_next.x.shape == (4, lt.prog.n)
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        lt(*tin, warm_start=True)
+    # warm_start=True keeps the solution on the layer for the next call
+    assert lt._warm is None
+    lt(*tin, warm_start=True)
+    assert isinstance(lt._warm, ct.WarmStart)
+    assert lt._warm.x.shape == (4, lt.prog.n)
 
 
 def test_f32_box_qp_solves_every_lane():
@@ -190,8 +193,12 @@ def test_device_and_gradient_contracts(monkeypatch):
     v, G, h = (torch.as_tensor(a) for a in box_qp_values(2, seed=6))
     with pytest.raises(ValueError, match="is on meta"):
         layer(v.to("meta"), G, h)
-    with pytest.raises(NotImplementedError, match="next port slice"):
-        layer(v.requires_grad_(), G, h)
+    # an input that requires grad gets one; the statuses carry none
+    (x, _), status, _ = layer.solve_with_info(v.requires_grad_(), G, h)
+    assert x.requires_grad and not status.requires_grad
+    x.sum().backward()
+    assert tuple(v.grad.shape) == tuple(v.shape)
+    assert bool(torch.isfinite(v.grad).all())
     with pytest.raises(TypeError, match="torch.Tensor"):
         layer(np.zeros(8), G[0], h[0])
     with pytest.raises(NotImplementedError, match="later port slice"):

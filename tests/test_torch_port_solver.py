@@ -7,6 +7,8 @@ equal and (x, y, s) agree to 1e-8: the two run the same arithmetic, and
 reassociated sums at f64 stay far below the solver tolerances.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -26,6 +28,7 @@ from cvxpylayers_tpu_torch.solver.settings import SolverSettings as TSettings
 from cvxpylayers_tpu_torch.solver.settings import (
     DUAL_INFEASIBLE,
     PRIMAL_INFEASIBLE,
+    SOLVED,
 )
 
 _ATOL = 1e-8
@@ -55,23 +58,32 @@ def _random_qps(B, n, n_zero, n_nonneg, seed, lp=False):
     return P, q, A, b
 
 
-def _run_both(which, data, n_zero, settings_kw, p_diag_full=True):
+@functools.lru_cache(maxsize=None)
+def _jax_solver(which, n, n_zero, n_nonneg, kw, p_diag_full):
+    """One jitted, vmapped reference solver per structure and settings:
+    compiling it is the cost of this module, so tests share structures."""
+    jd = JDims(zero=n_zero, nonneg=n_nonneg)
+    js = JSettings().replace(**dict(kw))
+    jsolve = (j_admm(jd, n, js) if which == "admm"
+              else j_polished(jd, n, js, p_diag_full=p_diag_full))
+    return jax.jit(jax.vmap(jsolve))
+
+
+def _run_both(which, data, n_zero, settings_kw, p_diag_full=True,
+              warm=None):
     P, q, A, b = data
     B, n = q.shape
     m = b.shape[1]
-    jd = JDims(zero=n_zero, nonneg=m - n_zero)
     td = TDims(zero=n_zero, nonneg=m - n_zero)
-    js = JSettings().replace(**settings_kw)
     ts = TSettings().replace(**settings_kw)
-    if which == "admm":
-        jsolve = j_admm(jd, n, js)
-        tsolve = t_admm(td, n, ts)
-    else:
-        jsolve = j_polished(jd, n, js, p_diag_full=p_diag_full)
-        tsolve = t_polished(td, n, ts, p_diag_full=p_diag_full)
-    zeros = (np.zeros((B, n)), np.zeros((B, m)), np.zeros((B, m)))
-    jr = jax.jit(jax.vmap(jsolve))(*(jnp.asarray(a) for a in data + zeros))
-    tr = tsolve(*(torch.as_tensor(a) for a in data + zeros))
+    tsolve = (t_admm(td, n, ts) if which == "admm"
+              else t_polished(td, n, ts, p_diag_full=p_diag_full))
+    init = warm or (np.zeros((B, n)), np.zeros((B, m)), np.zeros((B, m)))
+    args = tuple(data) + tuple(init)
+    jr = _jax_solver(which, n, n_zero, m - n_zero,
+                     tuple(sorted(settings_kw.items())), p_diag_full)(
+        *(jnp.asarray(a) for a in args))
+    tr = tsolve(*(torch.as_tensor(a) for a in args))
     return jr, tr
 
 
@@ -102,34 +114,40 @@ def test_lp_polish_on_cg_normal_route_matches_reference():
 
 def test_infeasible_and_unbounded_statuses_match_reference():
     # lane 0: x1 >= 1 and x1 <= -1 (primal infeasible, P = I);
-    # lane 1: minimize -x1 with x1 free (unbounded, P = 0)
-    P = np.stack([np.eye(2), np.zeros((2, 2))])
-    q = np.array([[0.3, -0.2], [-1.0, 0.0]])
-    A = np.array([[[-1.0, 0.0], [1.0, 0.0]], [[0.0, 1.0], [0.0, 0.0]]])
-    b = np.array([[-1.0, -1.0], [1.0, 0.0]])
+    # lane 1: minimize -x1 with x1 free (unbounded, P = 0);
+    # lane 2: minimize x1 over x1 >= -1 (solved).
+    # Padded to the LP test's shapes (B = 3, n = 3, one equality row, 8
+    # nonneg rows) with x3 = 0 and trivial rows 0 <= 1, so that its
+    # compiled reference serves here too.
+    n, m = 3, 9
+    P = np.zeros((3, n, n))
+    P[0, :2, :2] = np.eye(2)
+    P[2] = np.eye(n)
+    q = np.array([[0.3, -0.2, 0.0], [-1.0, 0.0, 0.0], [1.0, 0.0, 0.0]])
+    A = np.zeros((3, m, n))
+    b = np.ones((3, m))
+    A[2, 1, 0] = -1.0                       # x1 >= -1
+    A[:, 0, 2], b[:, 0] = 1.0, 0.0          # x3 = 0
+    A[0, 1, 0], b[0, 1] = -1.0, -1.0        # x1 >= 1
+    A[0, 2, 0], b[0, 2] = 1.0, -1.0         # x1 <= -1
+    A[1, 1, 1], b[1, 1] = 1.0, 1.0          # x2 <= 1
+    b[1, 2] = 0.0                           # 0 <= 0
     for which in ("admm", "polished"):
-        jr, tr = _run_both(which, (P, q, A, b), 0, {}, p_diag_full=False)
+        jr, tr = _run_both(which, (P, q, A, b), 1, {}, p_diag_full=False)
         np.testing.assert_array_equal(tr.status.numpy(),
                                       np.asarray(jr.status))
         np.testing.assert_array_equal(tr.iters.numpy(), np.asarray(jr.iters))
-        assert tr.status.tolist() == [PRIMAL_INFEASIBLE, DUAL_INFEASIBLE]
+        assert tr.status.tolist() == [PRIMAL_INFEASIBLE, DUAL_INFEASIBLE,
+                                      SOLVED]
 
 
 def test_warm_start_and_settings_match_reference():
     # a warm start from a nearby point, a short epoch and no adaptive rho
     data = _random_qps(3, 4, 1, 6, seed=41)
-    P, q, A, b = data
     kw = {"epoch": 10, "adaptive_rho": False, "refine_steps": 3}
     cold_j, _ = _run_both("polished", data, 1, kw)
     r = np.random.default_rng(0)
     warm = tuple(np.asarray(a) + 1e-3 * r.standard_normal(np.shape(a))
                  for a in (cold_j.x, cold_j.y, cold_j.s))
-    B, n = q.shape
-    m = b.shape[1]
-    js = JSettings().replace(**kw)
-    ts = TSettings().replace(**kw)
-    jsolve = j_polished(JDims(zero=1, nonneg=m - 1), n, js)
-    tsolve = t_polished(TDims(zero=1, nonneg=m - 1), n, ts)
-    jr = jax.jit(jax.vmap(jsolve))(*(jnp.asarray(a) for a in data + warm))
-    tr = tsolve(*(torch.as_tensor(a) for a in data + warm))
+    jr, tr = _run_both("polished", data, 1, kw, warm=warm)
     _assert_same(jr, tr)
