@@ -19,6 +19,9 @@ import cvxpylayers_tpu as cj
 import cvxpylayers_tpu_torch as ct
 from cvxpylayers_tpu_torch.solver import cuda_admm, cuda_linalg
 
+# tiny tensors: more threads only contend with the other test workers
+torch.set_num_threads(1)
+
 _ATOL = 1e-6
 _N, _M_INEQ, _B = 6, 3, 3
 
@@ -216,3 +219,76 @@ def test_layer_ipm_on_lp_needs_primal_dual_mode():
     np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
     np.testing.assert_allclose(ot[0].numpy(), np.asarray(oj[0]), atol=_ATOL,
                                rtol=0)
+
+
+def _simplex(**kw):
+    x = ct.Variable(4)
+    v = ct.Parameter(4)
+    eq = ct.sum(x) == 1
+    prob = ct.Problem(ct.Minimize(ct.sum_squares(x - v)), [eq, x >= 0])
+    return ct.CvxpyLayer(prob, parameters=[v],
+                         variables=[x, eq.dual_variables[0]], device="cpu",
+                         **kw)
+
+
+@pytest.mark.parametrize("method", ["admm", "ipm"])
+def test_gradcheck_simplex_projection_with_its_dual(method):
+    # v puts two coordinates strictly inside and two strictly at zero, so
+    # the active set holds within the finite-difference step
+    layer = _simplex(solver_args={"solve_method": method,
+                                  "refine_steps": 3})
+    v = torch.tensor([0.9, 0.4, -0.6, -1.1], dtype=torch.float64,
+                     requires_grad=True)
+    x, _ = layer(v)
+    assert (x.detach() > 1e-3).sum() == 2
+    assert torch.autograd.gradcheck(lambda p: layer(p), [v], eps=1e-6,
+                                    atol=1e-5, rtol=1e-4)
+
+
+def test_gradcheck_box_qp_dual_output():
+    # the gradient of a constraint's dual variable alone
+    layer = box_qp(ct, n=3, m_ineq=2, device="cpu",
+                   solver_args={"refine_steps": 3})
+    # the first row is active with every x strictly inside its box, the
+    # second is slack: strict complementarity, so the dual is smooth here
+    v = torch.tensor([0.8, 0.5, 0.3], dtype=torch.float64,
+                     requires_grad=True)
+    G = torch.tensor([[1.0, 1.0, 1.0], [1.0, -1.0, 0.0]],
+                     dtype=torch.float64, requires_grad=True)
+    h = torch.tensor([0.9, 0.5], dtype=torch.float64, requires_grad=True)
+    x, d = layer(v, G, h)
+    assert float(x.detach().min()) > 0.05 and float(x.detach().max()) < 0.95
+    assert float(d.detach()[0]) > 0.1 and float(d.detach()[1]) < 1e-9
+    assert torch.autograd.gradcheck(lambda *p: layer(*p)[1], [v, G, h],
+                                    eps=1e-6, atol=1e-5, rtol=1e-4)
+
+
+def test_admm_and_ipm_gradients_agree():
+    layer = box_qp(ct, device="cpu")
+    vals = box_qp_values(seed=9)
+    grads = {}
+    for method in ("admm", "ipm"):
+        tin = [torch.as_tensor(a).requires_grad_() for a in vals]
+        x, d = layer(*tin, solver_args={"solve_method": method})
+        (x.square().sum() + d.sum()).backward()
+        grads[method] = [t.grad.numpy() for t in tin]
+    for a, b in zip(grads["admm"], grads["ipm"]):
+        np.testing.assert_allclose(b, a, atol=_ATOL, rtol=0)
+    assert np.abs(grads["admm"][2]).max() > 1e-3
+
+
+def test_no_graph_without_a_differentiable_input():
+    layer = box_qp(ct, device="cpu")
+    vals = [torch.as_tensor(a) for a in box_qp_values(seed=10)]
+    x, d = layer(*vals)
+    assert not x.requires_grad and x.grad_fn is None and d.grad_fn is None
+    vals[0].requires_grad_()
+    with torch.no_grad():
+        x_ng, _ = layer(*vals)
+    assert not x_ng.requires_grad
+    np.testing.assert_array_equal(x_ng.numpy(), x.numpy())
+    # the outputs of a differentiable call can be differentiated twice over
+    # only up to first order: the adjoint is not itself recorded
+    x2, _ = layer(*vals)
+    (g,) = torch.autograd.grad(x2.sum(), vals[0], create_graph=True)
+    assert not g.requires_grad

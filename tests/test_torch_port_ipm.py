@@ -46,6 +46,9 @@ from cvxpylayers_tpu_torch.solver.settings import (
 )
 from cvxpylayers_tpu_torch.solver.settings import SolverSettings as TSettings
 
+# tiny tensors: more threads only contend with the other test workers
+torch.set_num_threads(1)
+
 # ------------------------------------------------------------------ K2
 
 
@@ -310,3 +313,42 @@ def test_ipm_unported_routes_raise():
     with pytest.raises(NotImplementedError, match="derivative='adjoint'"):
         make_diff_solver(TDims(nonneg=3), 2,
                          st.replace(derivative="forward"))
+
+
+@pytest.mark.parametrize("lp", [False, True], ids=["qp", "lp"])
+def test_ipm_solution_satisfies_optimality_conditions(lp):
+    n_zero = 1
+    P, q, A, b = (torch.as_tensor(a)
+                  for a in _random_qps(3, 3, n_zero, 8, seed=53, lp=lp))
+    kw = dict(_LP_KW if lp else _QP_KW, eps_abs=1e-9, eps_rel=1e-9)
+    solve = t_ipm(TDims(zero=n_zero, nonneg=8), 3, TSettings().replace(**kw))
+    r = solve(P, q, A, b, *(torch.zeros_like(t) for t in (q, b, b)))
+    assert r.status.tolist() == [SOLVED] * 3
+    mv = lambda M, v: torch.einsum("bij,bj->bi", M, v)  # noqa: E731
+    assert float((mv(A, r.x) + r.s - b).abs().max()) < 1e-7
+    assert float((mv(P, r.x) + q + mv(A.mT, r.y)).abs().max()) < 1e-7
+    assert float(r.s[:, :n_zero].abs().max()) < 1e-7
+    assert float(r.s[:, n_zero:].min()) >= 0
+    assert float(r.y[:, n_zero:].min()) >= 0
+    assert float((r.s * r.y).sum(-1).abs().max()) < 1e-7
+
+
+def test_ipm_lanes_do_not_depend_on_their_batch():
+    # lanes stop at different iterations and are frozen from then on: each
+    # lane alone gives what it gives inside the batch, bit for bit in
+    # status and count
+    data = _random_qps(4, 5, 2, 7, seed=54)
+    solve = t_ipm(TDims(zero=2, nonneg=7), 5, TSettings().replace(**_QP_KW))
+    args = [torch.as_tensor(a) for a in data]
+    zeros = [torch.zeros(4, 5), torch.zeros(4, 9), torch.zeros(4, 9)]
+    zeros = [z.double() for z in zeros]
+    whole = solve(*args, *zeros)
+    assert len(set(whole.iters.tolist())) > 1  # the lanes do differ
+    for i in range(4):
+        one = solve(*(t[i:i + 1] for t in args + zeros))
+        assert int(one.status) == int(whole.status[i])
+        assert int(one.iters) == int(whole.iters[i])
+        for f in ("x", "y", "s"):
+            np.testing.assert_allclose(getattr(one, f)[0].numpy(),
+                                       getattr(whole, f)[i].numpy(),
+                                       atol=1e-10, rtol=0)

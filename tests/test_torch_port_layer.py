@@ -17,6 +17,9 @@ import cvxpylayers_tpu as cj
 import cvxpylayers_tpu_torch as ct
 from cvxpylayers_tpu_torch.solver import cuda_admm
 
+# tiny tensors: more threads only contend with the other test workers
+torch.set_num_threads(1)
+
 _ATOL = 1e-6
 
 
@@ -203,3 +206,62 @@ def test_device_and_gradient_contracts(monkeypatch):
         layer(np.zeros(8), G[0], h[0])
     with pytest.raises(NotImplementedError, match="later port slice"):
         layer(v.detach(), G, h, solver_args={"assembly": "sparse"})
+
+
+_ROUTE_CASES = {
+    "box_qp": (box_qp, lambda: box_qp_values(3, seed=7), {}),
+    "simplex": (simplex,
+                lambda: [np.random.default_rng(8).standard_normal((3, 6))],
+                {}),
+    # an LP: the interior-point route needs its primal-dual form here
+    "lad": (lad, lambda: [np.random.default_rng(9).standard_normal((3, 3, 2)),
+                          np.random.default_rng(10).standard_normal((3, 3))],
+            {"ipm_mode": "pd"}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTE_CASES))
+def test_admm_and_ipm_routes_agree(case):
+    # two solvers, one polish: both routes of the port land on the same
+    # primal and dual solution
+    build, values, ipm_args = _ROUTE_CASES[case]
+    layer = build(ct, device="cpu")
+    vals = [torch.as_tensor(a) for a in values()]
+    oa, sa, _ = layer.solve_with_info(*vals)
+    oi, si, ii = layer.solve_with_info(
+        *vals, solver_args={"solve_method": "ipm", **ipm_args})
+    assert (sa == 0).all() and (si == 0).all()
+    assert int(ii.max()) < 30
+    for a, b in zip(oa, oi):
+        np.testing.assert_allclose(b.numpy(), a.numpy(), atol=_ATOL, rtol=0)
+
+
+def test_solver_args_are_checked():
+    layer = simplex(ct, device="cpu")
+    v = torch.as_tensor(np.random.default_rng(11).standard_normal(6))
+    with pytest.raises(ValueError, match="unknown solver_args key"):
+        layer(v, solver_args={"no_such_option": 1})
+    with pytest.raises(NotImplementedError, match="'admm'"):
+        layer(v, solver_args={"solve_method": "pdhg"})
+    with pytest.raises(NotImplementedError, match="derivative='adjoint'"):
+        layer(v, solver_args={"derivative": "forward"})
+    # arguments given at construction are the defaults of every call, and
+    # a call's own arguments override them
+    strict = simplex(ct, device="cpu", solver_args={"max_iters": 1,
+                                                    "refine_steps": 0})
+    with pytest.raises(ct.SolverError):
+        strict(v)
+    x, _ = strict(v, solver_args={"max_iters": 2000, "refine_steps": 4})
+    np.testing.assert_allclose(x.numpy(), layer(v)[0].numpy(), atol=_ATOL)
+
+
+def test_warm_start_from_numpy_round_trip():
+    r = np.random.default_rng(12)
+    x, y, s = (r.standard_normal((2, k)).astype(np.float32)
+               for k in (3, 5, 5))
+    ws = ct.WarmStart.from_numpy(x, y, s, device="cpu", dtype=torch.float64)
+    for t, a in zip((ws.x, ws.y, ws.s), (x, y, s)):
+        assert t.dtype == torch.float64 and t.device.type == "cpu"
+        np.testing.assert_array_equal(t.numpy(), a.astype(np.float64))
+    x[0, 0] = 99.0  # a copy, not a view of the host array
+    assert float(ws.x[0, 0]) != 99.0
