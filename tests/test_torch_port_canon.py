@@ -90,7 +90,34 @@ def hinge(mod, n=3, m=4):
     return prob, [A, lam], [x]
 
 
-_BUILDS = [box_qp, simplex, lad, eq_qp, box_lp, chebyshev, hinge]
+def max_of_affine(mod, n=2, m=4):
+    x = mod.Variable(n)
+    A = mod.Parameter((m, n))
+    b = mod.Parameter(m)
+    prob = mod.Problem(mod.Minimize(mod.max(A @ x - b)), [x >= -1, x <= 1])
+    return prob, [A, b], [x]
+
+
+def l1_ball(mod, n=3):
+    x = mod.Variable(n)
+    c = mod.Parameter(n)
+    r = mod.Parameter(nonneg=True)
+    prob = mod.Problem(mod.Minimize(c @ x), [mod.norm(x, 1) <= r])
+    return prob, [c, r], [x]
+
+
+def markowitz(mod, n=4):
+    x = mod.Variable(n)
+    mu = mod.Parameter(n)
+    S = np.eye(n) + 0.3 * np.ones((n, n))
+    prob = mod.Problem(
+        mod.Minimize(mod.quad_form(x, mod.Constant(S)) - mu @ x),
+        [mod.sum(x) == 1, x >= 0])
+    return prob, [mu], [x]
+
+
+_BUILDS = [box_qp, simplex, lad, eq_qp, box_lp, chebyshev, hinge,
+           max_of_affine, l1_ball, markowitz]
 
 
 def _values(params, B, seed):
