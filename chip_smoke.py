@@ -252,10 +252,10 @@ def qr_kernel_phase(cuda_linalg):
     for label, B, m, n, dtype, zero_col in cases:
         M = qr_inputs(B, m, n, dtype, seed=B + m, zero_col=zero_col)
         on_card = M.device.type == "cuda"
-        in_shared, smem = (cuda_linalg.qr_plan(m, n, dtype, M.device)
-                           if on_card else (None, None))
-        if on_card and label.startswith("beyond") == bool(in_shared):
-            fail(f"{label}: unexpected branch (in_shared={in_shared})")
+        plan = (cuda_linalg.qr_plan(m, n, dtype, M.device) if on_card
+                else cuda_linalg.QrPlan(None, None, None))
+        if on_card and label.startswith("beyond") == plan.in_shared:
+            fail(f"{label}: unexpected branch (in_shared={plan.in_shared})")
         before = cuda_linalg.LAUNCHES
         Rk = cuda_linalg.qr_r(M)
         if on_card:
@@ -290,8 +290,9 @@ def qr_kernel_phase(cuda_linalg):
         bound, bound_by = qr_bound_ms(B, m, n, elem)
         rec = dict(kernel="K2", shape=label, B=B, m=m, n=n,
                    dtype=str(dtype).replace("torch.", ""),
-                   branch=("shared" if in_shared else "device-memory"),
-                   smem_bytes=smem, max_abs_err=err, tol=tol,
+                   branch=("shared" if plan.in_shared else "device-memory"),
+                   threads=plan.threads, smem_bytes=plan.smem_bytes,
+                   max_abs_err=err, tol=tol,
                    gram_scale=scale, rel_err=err / scale,
                    plain_f64_noise=noise, kernel_vs_f64=float(
                        (Gk - G).abs().max()),
@@ -302,7 +303,28 @@ def qr_kernel_phase(cuda_linalg):
             fail(f"{label}: K2 vs plain max abs err on R'R {err:.3e} > "
                  f"tol {tol:.3e}")
         shapes.append(rec)
+    qr_wave_records(cuda_linalg)
     return shapes[0], shapes
+
+
+def qr_wave_records(cuda_linalg, m=170, n=50):
+    """Timing only: K2 at the main (m, n) in f32 with B = 792 (six blocks
+    on each of the 132 SMs, the wave that the tile's shared memory alone
+    allows) and B = 1024, timed in turns (792, 1024, 1024, 792)."""
+    M = {B: qr_inputs(B, m, n, torch.float32, seed=B + m)
+         for B in (792, 1024)}
+    times = {792: [], 1024: []}
+    for B in (792, 1024, 1024, 792):
+        times[B].append(time_cuda(lambda: cuda_linalg.qr_r(M[B]), reps=20,
+                                  warmup=3))
+    on_card = DEV == "cuda"
+    for B, ts in times.items():
+        plan = (cuda_linalg.qr_plan(m, n, torch.float32, M[B].device)
+                if on_card else cuda_linalg.QrPlan(None, None, None))
+        say("kernel_wave", json.dumps(dict(
+            kernel="K2", B=B, m=m, n=n, dtype="float32",
+            threads=plan.threads, smem_bytes=plan.smem_bytes,
+            ms=statistics.mean(ts), ms_turns=ts)))
 
 
 # ------------------------------------------------------------------ layers
