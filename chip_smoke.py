@@ -138,6 +138,29 @@ def epoch_bound_ms(B, n, m, iters, elem_bytes):
                                  else "bytes")
 
 
+def epoch_error(cuda_admm, a, kw, out, lanes=None):
+    """(max abs error, tolerance, plain f64 noise) of a kernel's (x, z, y)
+    against the plain version on the same inputs `a`. The tolerance is
+    four times the plain version's own rounding error at its dtype (its
+    distance from the same loop in f64 on the same inputs), and at least
+    1e-5 (f32) / 1e-12 (f64) of the output's scale, since the two sum the
+    matvecs in another order. `lanes` (a boolean mask over the batch)
+    limits the comparison to those instances."""
+    ref = cuda_admm.polyhedral_inner_epoch_plain(
+        *(a[k] for k in _ORDER), **kw)
+    ref64 = cuda_admm.polyhedral_inner_epoch_plain(
+        *(a[k].double() for k in _ORDER), **kw)
+    sync()
+    if lanes is not None:
+        out, ref, ref64 = ([o[lanes] for o in v] for v in (out, ref, ref64))
+    err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
+    noise = max(float((r.double() - r64).abs().max())
+                for r, r64 in zip(ref, ref64))
+    scale = max(float(r.abs().max()) for r in ref)
+    floor = (1e-5 if out[0].dtype == torch.float32 else 1e-12) * scale
+    return err, max(4.0 * noise, floor), noise
+
+
 def kernel_phase(cuda_admm):
     """K1 against its plain version. Tolerance: the kernel may differ from
     the plain version by at most four times the plain version's own
@@ -164,21 +187,10 @@ def kernel_phase(cuda_admm):
             fail(f"{label}: expected the shared-memory branch")
         out = cuda_admm.polyhedral_inner_epoch(*(a[k] for k in _ORDER), **kw)
         torch.cuda.synchronize()
-        ref = cuda_admm.polyhedral_inner_epoch_plain(
-            *(a[k] for k in _ORDER), **kw)
-        torch.cuda.synchronize()
-        ref64 = cuda_admm.polyhedral_inner_epoch_plain(
-            *(a[k].double() for k in _ORDER), **kw)
-        torch.cuda.synchronize()
         for o in out:
             if not bool(torch.isfinite(o).all()):
                 fail(f"{label}: non-finite kernel output")
-        err = max(float((o - r).abs().max()) for o, r in zip(out, ref))
-        noise = max(float((r.double() - r64).abs().max())
-                    for r, r64 in zip(ref, ref64))
-        scale = max(float(r.abs().max()) for r in ref)
-        floor = (1e-5 if dtype == torch.float32 else 1e-12) * scale
-        tol = max(4.0 * noise, floor)
+        err, tol, noise = epoch_error(cuda_admm, a, kw, out)
         ok = err <= tol
         ms = time_cuda(lambda: cuda_admm.polyhedral_inner_epoch(
             *(a[k] for k in _ORDER), **kw), reps=20, warmup=3)
