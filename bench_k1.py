@@ -3,7 +3,8 @@
 
 Run from the root of a checkout on a machine with one NVIDIA GPU:
 
-    python3 bench_k1.py [--old PATH] [--clocks] [--sass] [--out FILE]
+    python3 bench_k1.py [--old PATH] [--clocks] [--sass] [--regcap]
+                        [--out FILE]
 
 Records, one JSON line each (also written to FILE when given):
   ptxas      registers, spills and shared memory of every kernel built
@@ -18,8 +19,12 @@ Records, one JSON line each (also written to FILE when given):
              turns (old, new, new, old) in this call
   staircase  the box-QP shape (n=50, m=120, 50 steps, f32) over batch
              sizes around multiples of the 132 SMs, for the package's
-             plan and for --old; B=132 is one block (or one packed block)
-             alone on each SM, the latency of one instance's chain
+             plan and for --old; B = 132 x (instances per block) is one
+             block alone on each SM, the latency of one block's chain
+  regcap     with --regcap, the box-QP f32 register tile built under each
+             __launch_bounds__ minimum of blocks per SM in REGCAPS (a copy
+             of the source in _scratch/k1_regcap/), with ptxas's registers
+             and spills, timed at REGCAP_BATCHES
   clocks     with --clocks, cycles by phase of one epoch: an instrumented
              copy of each source is written to and built in
              _scratch/k1_clocks/ (never in the package), where thread 0 of
@@ -31,8 +36,9 @@ Records, one JSON line each (also written to FILE when given):
              spills, FMAs
 
 Every variant is held against the plain version at chip_smoke.py's K1
-tolerance before it is timed. CUDA events, 20 launches after 3 warm-up
-launches.
+tolerance before it is timed. Kernel times: CUDA events around 20
+launches captured in one CUDA graph (chip_smoke.time_graph), after 3
+warm-up launches; the wrapper's time: 20 plain launches.
 """
 
 import argparse
@@ -51,7 +57,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
 
 from chip_smoke import (  # noqa: E402
-    _ORDER, epoch_bound_ms, epoch_error, epoch_inputs, fail, say, time_cuda)
+    _ORDER, epoch_bound_ms, epoch_error, epoch_inputs, fail, say, time_cuda,
+    time_graph)
 
 SHAPES = [  # (label, B, n, m, n_zero, dtype, iters) as the ADMM path runs K1
     ("box-QP f32", 1024, 50, 120, 0, torch.float32, 50),
@@ -99,6 +106,54 @@ def nvcc_build(src, so, extra=()):
 def ptxas_lines(log):
     return [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln or "Compiling" in ln]
+
+
+def ptxas_report(log, needle):
+    """(registers, spill store bytes, spill load bytes) of the one kernel
+    whose mangled name contains `needle`, from a -Xptxas -v log."""
+    lines = log.splitlines()
+    for k, ln in enumerate(lines):
+        if "Compiling entry function" in ln and needle in ln:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", "\n".join(lines[k:k + 3]))
+            regs = re.search(r"Used (\d+) registers", "\n".join(
+                lines[k:k + 4]))
+            return (int(regs.group(1)) if regs else None,
+                    *(int(v) for v in (spill.groups() if spill else (0, 0))))
+    return None, None, None
+
+
+# register caps (the __launch_bounds__ minimum of blocks per SM, f32) to
+# try for the box-QP tile, and the batches each is timed at
+REGCAPS = (1, 2, 3, 4)
+REGCAP_BATCHES = (132, 528, 1024)
+
+
+def regcap_library(tile, minb, build_dir):
+    """A copy of csrc/admm_epoch.cu whose register tile `tile` asks for
+    `minb` blocks per SM in f32, built in `build_dir`; (lib, ptxas log)."""
+    from cvxpylayers_tpu_torch import cuda_build
+
+    src = (cuda_build.SRC_DIR / "admm_epoch.cu").read_text()
+    head, rest = src.split("constexpr Tile kTiles[] = {\n", 1)
+    body, tail = rest.split("};", 1)
+    rows = body.splitlines(keepends=True)
+    fields = re.match(r"(\s*\{)(\d+), (\d+), (\d+), (\d+), (\d+), (\d+)\}",
+                      rows[tile])
+    if fields is None:
+        fail(f"--regcap: kTiles row {tile} not understood: {rows[tile]!r}")
+    g = fields.groups()
+    rows[tile] = rows[tile].replace(
+        fields.group(0), f"{g[0]}{g[1]}, {g[2]}, {g[3]}, {g[4]}, {minb}, "
+        f"{g[6]}}}")
+    os.makedirs(build_dir, exist_ok=True)
+    path = os.path.join(build_dir, f"admm_epoch_t{tile}_b{minb}.cu")
+    with open(path, "w") as f:
+        f.write(head + "constexpr Tile kTiles[] = {\n" + "".join(rows) + "};"
+                + tail)
+    so = os.path.join(build_dir, f"libadmm_epoch_t{tile}_b{minb}.so")
+    log = nvcc_build(path, so)
+    return ctypes.CDLL(so), log
 
 
 class OldK1:
@@ -150,12 +205,12 @@ class NewK1:
 
     def __init__(self, cuda_admm, lib=None):
         self.ca = cuda_admm
-        self.lib = lib or cuda_admm._library()
+        self.lib = cuda_admm.bind(lib) if lib else cuda_admm._library()
         self.optin = self.lib.admm_epoch_smem_optin(0)
 
-    def plan(self, n, m, dtype, **force):
+    def plan(self, n, m, dtype):
         elem = torch.empty((), dtype=dtype).element_size()
-        return self.ca.launch_plan(n, m, elem, self.optin, **force)
+        return self.ca.launch_plan(n, m, elem, self.optin)
 
     def __call__(self, a, n_zero, iters, plan=None):
         n, m = a["q"].shape[1], a["b"].shape[1]
@@ -208,8 +263,26 @@ _PROBES_V1 = [
 ]
 _PHASES_V1 = ("staging", "At_t", "barrier_1", "Minv_rhs", "barrier_2",
               "A_xt_projection", "barrier_3", "writeout")
-_PROBES_V2 = []  # filled in with version 2's anchors
-_PHASES_V2 = ()
+# version 2: the register branch's kernel (admm_epoch_reg_kernel)
+_PROBES_V2 = [
+    ("#include <stddef.h>\n", "#include <stddef.h>\n" + _CLOCK_HEAD),
+    ("  T* p_s = base + L::kP;\n",
+     "  T* p_s = base + L::kP;\n"
+     "  const bool probe_ = blockIdx.x == 0 && threadIdx.x == 0;\n"
+     "  long long t_ = clock64();\n"),
+    ("  __syncthreads();  // end of staging\n",
+     "  __syncthreads();  // end of staging\n  K1_STAMP(0)\n"),
+    ("    __syncthreads();  // barrier 1: the partials of A' t\n",
+     "    K1_STAMP(1)\n    __syncthreads();\n    K1_STAMP(2)\n"),
+    ("    __syncthreads();  // barrier 2: xt\n",
+     "    K1_STAMP(3)\n    __syncthreads();\n    K1_STAMP(4)\n"),
+    ("    __syncwarp();  // t is read back only inside this row group\n",
+     "    K1_STAMP(5)\n    __syncwarp();\n    K1_STAMP(6)\n"),
+    ("      y_out[inst * m + row[r]] = y[r];\n    }\n}\n",
+     "      y_out[inst * m + row[r]] = y[r];\n    }\n  K1_STAMP(7)\n}\n"),
+]
+_PHASES_V2 = ("staging", "At_t", "barrier_1", "Minv_rhs", "barrier_2",
+              "A_xt_projection", "warp_barrier", "writeout")
 
 
 def clocks_library(src_path, build_dir, tag):
@@ -245,11 +318,15 @@ _SASS_KEYS = ("LD", "ST", "LDS", "LDS.32", "LDS.64", "LDS.128", "STS",
 _OP = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
 
 
-def sass_counts(so):
-    """Opcode counts per kernel function of a built library."""
+def sass_counts(so, dump=None):
+    """Opcode counts per kernel function of a built library; the whole
+    listing also goes to the file `dump` when given."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     out = subprocess.run([tool, "-sass", so], capture_output=True,
                          text=True).stdout
+    if dump:
+        with open(dump, "w") as f:
+            f.write(out)
     funcs = collections.OrderedDict()
     cur = None
     for line in out.splitlines():
@@ -279,6 +356,8 @@ def main():
                     help="also the cycles by phase of instrumented copies")
     ap.add_argument("--sass", action="store_true",
                     help="also cuobjdump -sass opcode counts")
+    ap.add_argument("--regcap", action="store_true",
+                    help="also the box-QP f32 tile under other register caps")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         fail("bench_k1.py needs an NVIDIA GPU")
@@ -298,13 +377,10 @@ def main():
         say(json.dumps(rec))
 
     scratch = os.path.join(ROOT, "_scratch")
-    has_v2 = hasattr(cuda_admm, "launch_plan")
-    new = NewK1(cuda_admm) if has_v2 else None
-    kernels = {}
-    if new is not None:
-        kernels["new"] = new
-        emit("ptxas", source="package",
-             lines=ptxas_lines(cuda_build.BUILD_LOGS.get("admm_epoch", "")))
+    new = NewK1(cuda_admm)
+    kernels = {"new": new}
+    emit("ptxas", source="package",
+         lines=ptxas_lines(cuda_build.BUILD_LOGS.get("admm_epoch", "")))
     old = None
     if args.old:
         so = os.path.join(scratch, "k1_old_build", "libadmm_epoch_old.so")
@@ -313,9 +389,9 @@ def main():
         old = OldK1(ctypes.CDLL(so))
         kernels["old"] = old
     if args.sass:
-        if new is not None:
-            emit("sass", source="package", counts=sass_counts(
-                str(cuda_build.library_path("admm_epoch"))))
+        emit("sass", source="package", counts=sass_counts(
+            str(cuda_build.library_path("admm_epoch")),
+            args.out and args.out + ".sass.txt"))
         if old is not None:
             emit("sass", source=args.old, counts=sass_counts(so))
 
@@ -327,29 +403,26 @@ def main():
         common = dict(shape=label, B=B, n=n, m=m, n_zero=n_zero, iters=iters,
                       dtype=dtype_name(dtype), bound_ms=bound,
                       bound_by=bound_by)
-        if new is not None:
-            chosen = new.plan(n, m, dtype)
-            for plan in cuda_admm.plan_candidates(n, m, elem, new.optin):
-                err, tol = check(new(a, n_zero, iters, plan), a, kw,
-                                 f"{label} {plan}")
-                ms = time_cuda(lambda: new(a, n_zero, iters, plan), reps=20,
-                               warmup=3)
-                emit("sweep", **common, plan=plan._asdict(),
-                     chosen=plan == chosen, ms=ms, max_abs_err=err, tol=tol)
-            ms = time_cuda(lambda: cuda_admm.polyhedral_inner_epoch(
-                *(a[k] for k in _ORDER), **kw), reps=20, warmup=3)
-            emit("wrapper", **common, plan=chosen._asdict(), ms=ms)
+        chosen = new.plan(n, m, dtype)
+        for plan in cuda_admm.plan_candidates(n, m, elem, new.optin):
+            err, tol = check(new(a, n_zero, iters, plan), a, kw,
+                             f"{label} {plan}")
+            ms = time_graph(lambda: new(a, n_zero, iters, plan))
+            emit("sweep", **common, plan=plan._asdict(),
+                 chosen=plan == chosen, ms=ms, max_abs_err=err, tol=tol)
+        ms = time_cuda(lambda: cuda_admm.polyhedral_inner_epoch(
+            *(a[k] for k in _ORDER), **kw), reps=20, warmup=3)
+        emit("wrapper", **common, plan=chosen._asdict(), ms=ms)
         if old is not None:
             err, tol = check(old(a, n_zero, iters), a, kw, f"{label} old")
-            ms = time_cuda(lambda: old(a, n_zero, iters), reps=20, warmup=3)
+            ms = time_graph(lambda: old(a, n_zero, iters))
             emit("old", **common, plan=old.plan(n, m, dtype), ms=ms,
                  max_abs_err=err, tol=tol)
-        if new is not None and old is not None:
+        if old is not None:
             turns = []
             for which in ("old", "new", "new", "old"):
                 k = kernels[which]
-                turns.append((which, time_cuda(lambda: k(a, n_zero, iters),
-                                               reps=20, warmup=3)))
+                turns.append((which, time_graph(lambda: k(a, n_zero, iters))))
             o = [t for w, t in turns if w == "old"]
             w = [t for w, t in turns if w == "new"]
             emit("ab", **common, plan=chosen._asdict(), old_ms=o, new_ms=w,
@@ -362,14 +435,31 @@ def main():
                 else old.plan(n, m, torch.float32))
         for B in STAIRS:
             a = epoch_inputs(B, n, m, 0, torch.float32, seed=B)
-            ms = time_cuda(lambda: k(a, 0, 50), reps=20, warmup=3)
+            ms = time_graph(lambda: k(a, 0, 50))
             emit("staircase", kernel=which, B=B, n=n, m=m, dtype="float32",
                  iters=50, plan=plan, ms=ms, us_per_instance=ms * 1e3 / B)
 
+    if args.regcap:
+        plan = new.plan(n, m, torch.float32)
+        tile = cuda_admm.TILES[plan.tile]
+        needle = (f"reg_kernelIfLi{tile.threads}ELi{tile.rows_a}ELi"
+                  f"{tile.rows_m}ELi{tile.cols}ELi")
+        for minb in REGCAPS:
+            lib, log = regcap_library(plan.tile, minb, os.path.join(
+                scratch, "k1_regcap"))
+            regs, spill_st, spill_ld = ptxas_report(log, f"{needle}{minb}E")
+            k = NewK1(cuda_admm, lib)
+            for B in REGCAP_BATCHES:
+                a = epoch_inputs(B, n, m, 0, torch.float32, seed=B)
+                kw = dict(n_zero=0, iters=50, sigma=SIGMA, alpha=ALPHA)
+                check(k(a, 0, 50, plan), a, kw, f"regcap {minb} B={B}")
+                ms = time_graph(lambda: k(a, 0, 50, plan))
+                emit("regcap", B=B, n=n, m=m, dtype="float32", iters=50,
+                     plan=plan._asdict(), min_blocks=minb, registers=regs,
+                     spill_stores=spill_st, spill_loads=spill_ld, ms=ms)
+
     if args.clocks:
-        sources = []
-        if new is not None:
-            sources.append(("new", str(cuda_build.SRC_DIR / "admm_epoch.cu")))
+        sources = [("new", str(cuda_build.SRC_DIR / "admm_epoch.cu"))]
         if old is not None:
             sources.append(("old", args.old))
         buf = (ctypes.c_ulonglong * 16)()

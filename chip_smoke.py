@@ -10,9 +10,11 @@ Phases (any failure exits non-zero before the result line):
   2. kernels hold each kernel against its plain PyTorch version on the
              card, at the main paths' shapes and at the edge shapes
              (ragged batch, equality rows, a zero column, beyond shared
-             memory, f64); time the kernel, the plain version, the one
-             PyTorch call that computes the same function where there is
-             one, and the card's bound
+             memory, f64, the small layers' shapes packed several to a
+             block, a NaN lane among finite ones), each K1 case on the
+             launch plan it expects; time the kernel, the plain version,
+             the one PyTorch call that computes the same function where
+             there is one, and the card's bound
   3. main    the OptNet box-QP projection layer (n=50, G 20x50, B=1024,
              f32) through CvxpyLayer(...).solve_with_info(*params), once
              with solve_method="admm" (kernel K1) and once with "ipm"
@@ -161,57 +163,112 @@ def epoch_error(cuda_admm, a, kw, out, lanes=None):
     return err, max(4.0 * noise, floor), noise
 
 
+def time_graph(fn, reps=20, warmup=3):
+    """Device ms of one launch: `reps` launches captured in one CUDA graph,
+    so no host time falls between them (a small kernel timed by plain
+    back-to-back launches would time the host), replayed three times
+    after `warmup` plain launches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+# K1's cases: (label, B, n, m, n_zero, dtype, iters, the plan expected on
+# an H100 as (branch, threads per instance, instances per block))
+K1_CASES = [
+    ("main path box-QP f32", 1024, 50, 120, 0, torch.float32, 50,
+     ("register", 64, 2)),
+    ("main path box-QP f64", 1024, 50, 120, 0, torch.float64, 50,
+     ("register", 128, 1)),
+    ("ragged B, equality rows f32", 1000, 50, 120, 7, torch.float32, 50,
+     ("register", 64, 2)),
+    ("beyond shared memory f32", 256, 120, 400, 5, torch.float32, 50,
+     ("device", 256, 1)),
+    ("beyond shared memory f64", 256, 120, 400, 5, torch.float64, 50,
+     ("device", 256, 1)),
+    ("box-QP f32, one wave of version 1", 792, 50, 120, 0, torch.float32,
+     50, ("register", 64, 2)),
+    ("simplex layer f32", 256, 20, 21, 1, torch.float32, 25,
+     ("register", 32, 4)),
+    ("LAD layer f32, ragged last block", 250, 5, 8, 0, torch.float32, 100,
+     ("register", 8, 16)),
+]
+# the batch with one NaN M^{-1} lane: the LAD shape, whose tile packs four
+# instances to a warp and sixteen to a block
+K1_NAN_CASE = ("one NaN lane among packed lanes f32", 64, 5, 8, 0,
+               torch.float32, 100, ("register", 8, 16))
+K1_NAN_LANE = 9
+
+
 def kernel_phase(cuda_admm):
-    """K1 against its plain version. Tolerance: the kernel may differ from
-    the plain version by at most four times the plain version's own
-    rounding error at its dtype (its distance from the same loop in f64
-    on the same inputs), and by at least 1e-5 (f32) / 1e-12 (f64) of the
-    output's scale, since the two sum the matvecs in another order."""
-    cases = [
-        ("main path box-QP f32", 1024, 50, 120, 0, torch.float32),
-        ("main path box-QP f64", 1024, 50, 120, 0, torch.float64),
-        ("ragged B, equality rows f32", 1000, 50, 120, 7, torch.float32),
-        ("beyond shared memory f32", 256, 120, 400, 5, torch.float32),
-        ("beyond shared memory f64", 256, 120, 400, 5, torch.float64),
-    ]
-    iters = 50
+    """K1 against its plain version, each case on the plan it expects.
+    Tolerance (epoch_error): the kernel may differ from the plain version
+    by at most four times the plain version's own rounding error at its
+    dtype, and by at least 1e-5 (f32) / 1e-12 (f64) of the output's
+    scale, since the two sum the matvecs in another order. In the NaN
+    case the NaN lane's outputs must all be NaN and every other lane must
+    hold to that tolerance."""
     shapes = []
-    main = None
-    for label, B, n, m, n_zero, dtype in cases:
+    on_card = DEV == "cuda"
+    for case in K1_CASES + [K1_NAN_CASE]:
+        label, B, n, m, n_zero, dtype, iters, want = case
         a = epoch_inputs(B, n, m, n_zero, dtype, seed=B + n_zero)
+        lanes = None
+        if case is K1_NAN_CASE:
+            a["minv"][K1_NAN_LANE] = float("nan")
+            lanes = torch.arange(B, device=DEV) != K1_NAN_LANE
         kw = dict(n_zero=n_zero, iters=iters, sigma=1e-6, alpha=1.6)
-        in_shared, smem = cuda_admm.epoch_plan(n, m, dtype, a["q"].device)
-        if label.startswith("beyond") and in_shared:
-            fail(f"{label}: expected the device-memory branch")
-        if not label.startswith("beyond") and not in_shared:
-            fail(f"{label}: expected the shared-memory branch")
+        plan = (cuda_admm.epoch_plan(n, m, dtype, a["q"].device)
+                if on_card else None)
+        got = plan and (plan.branch, plan.threads, plan.instances)
+        if on_card and got != want:
+            fail(f"{label}: plan {got}, expected {want}")
+        before = cuda_admm.LAUNCHES
         out = cuda_admm.polyhedral_inner_epoch(*(a[k] for k in _ORDER), **kw)
-        torch.cuda.synchronize()
+        sync()
+        if on_card and cuda_admm.LAUNCHES != before + 1:
+            fail(f"{label}: polyhedral_inner_epoch did not launch K1")
         for o in out:
-            if not bool(torch.isfinite(o).all()):
+            if tuple(o.shape[:1]) != (B,) or o.dtype != dtype:
+                fail(f"{label}: bad output {tuple(o.shape)} {o.dtype}")
+            if not bool(torch.isfinite(o if lanes is None else o[lanes])
+                        .all()):
                 fail(f"{label}: non-finite kernel output")
-        err, tol, noise = epoch_error(cuda_admm, a, kw, out)
-        ok = err <= tol
-        ms = time_cuda(lambda: cuda_admm.polyhedral_inner_epoch(
-            *(a[k] for k in _ORDER), **kw), reps=20, warmup=3)
+            if lanes is not None and not bool(
+                    torch.isnan(o[K1_NAN_LANE]).all()):
+                fail(f"{label}: the NaN lane's outputs are not all NaN")
+        err, tol, noise = epoch_error(cuda_admm, a, kw, out, lanes)
+        ms = time_graph(lambda: cuda_admm.polyhedral_inner_epoch(
+            *(a[k] for k in _ORDER), **kw)) if on_card else 0.0
         plain_ms = time_cuda(lambda: cuda_admm.polyhedral_inner_epoch_plain(
             *(a[k] for k in _ORDER), **kw), reps=3)
         elem = torch.empty((), dtype=dtype).element_size()
         bound, bound_by = epoch_bound_ms(B, n, m, iters, elem)
         rec = dict(shape=label, B=B, n=n, m=m, n_zero=n_zero, iters=iters,
                    dtype=str(dtype).replace("torch.", ""),
-                   branch="shared" if in_shared else "device-memory",
-                   smem_bytes=smem, max_abs_err=err, tol=tol,
+                   plan=plan and plan._asdict(), max_abs_err=err, tol=tol,
                    plain_f64_noise=noise, ms=ms, plain_ms=plain_ms,
                    bound_ms=bound, bound_by=bound_by)
         say("kernel", json.dumps(rec))
-        if not ok:
+        if not err <= tol:
             fail(f"{label}: kernel vs plain max abs err {err:.3e} > "
                  f"tol {tol:.3e}")
         shapes.append(rec)
-        if main is None:
-            main = rec
-    return main, shapes
+    return shapes[0], shapes
 
 
 def qr_inputs(B, m, n, dtype, seed, zero_col=False):
