@@ -12,9 +12,12 @@ Phases (any failure exits non-zero before the result line):
              (ragged batch, equality rows, a zero column, beyond shared
              memory, f64, the small layers' shapes packed several to a
              block, a NaN lane among finite ones), each K1 case on the
-             launch plan it expects; time the kernel, the plain version,
-             the one PyTorch call that computes the same function where
-             there is one, and the card's bound
+             launch plan it expects (every branch: register tiles, shared
+             and device memory), the plan's geometry held against the
+             one the source derives; time the kernel (K1 also in a CUDA
+             graph), the plain version, the one PyTorch call that
+             computes the same function where there is one, and the
+             card's bound
   3. main    the OptNet box-QP projection layer (n=50, G 20x50, B=1024,
              f32) through CvxpyLayer(...).solve_with_info(*params), once
              with solve_method="admm" (kernel K1) and once with "ipm"
@@ -33,6 +36,7 @@ are the card's name and power limit and the per-kernel JSON record; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import ctypes
 import json
 import os
 import statistics
@@ -163,6 +167,10 @@ def epoch_error(cuda_admm, a, kw, out, lanes=None):
     return err, max(4.0 * noise, floor), noise
 
 
+MS_GRAPH = "CUDA events around 20 launches captured in one CUDA graph"
+MS_EVENTS = "CUDA events around 20 plain launches after 3"
+
+
 def time_graph(fn, reps=20, warmup=3):
     """Device ms of one launch: `reps` launches captured in one CUDA graph,
     so no host time falls between them (a small kernel timed by plain
@@ -188,7 +196,9 @@ def time_graph(fn, reps=20, warmup=3):
 
 
 # K1's cases: (label, B, n, m, n_zero, dtype, iters, the plan expected on
-# an H100 as (branch, threads per instance, instances per block))
+# an H100 as (branch, threads per instance, instances per block)); every
+# branch of the plan is run: the register tiles, version 1's shared
+# layout (n = 80, m = 200 fits no tile) and its device-memory layout
 K1_CASES = [
     ("main path box-QP f32", 1024, 50, 120, 0, torch.float32, 50,
      ("register", 64, 2)),
@@ -200,6 +210,10 @@ K1_CASES = [
      ("device", 256, 1)),
     ("beyond shared memory f64", 256, 120, 400, 5, torch.float64, 50,
      ("device", 256, 1)),
+    ("beyond the register tiles f32", 256, 80, 200, 5, torch.float32, 50,
+     ("shared", 256, 1)),
+    ("beyond the register tiles f64", 256, 80, 200, 5, torch.float64, 50,
+     ("shared", 256, 1)),
     ("box-QP f32, one wave of version 1", 792, 50, 120, 0, torch.float32,
      50, ("register", 64, 2)),
     ("simplex layer f32", 256, 20, 21, 1, torch.float32, 25,
@@ -212,6 +226,20 @@ K1_CASES = [
 K1_NAN_CASE = ("one NaN lane among packed lanes f32", 64, 5, 8, 0,
                torch.float32, 100, ("register", 8, 16))
 K1_NAN_LANE = 9
+
+
+def check_geometry(cuda_admm, plan, label, n, m, dtype):
+    """The plan's threads, instances and shared bytes against those the
+    source derives from its branch and tile (admm_epoch_geometry)."""
+    out = (ctypes.c_longlong * 3)()
+    elem = torch.empty((), dtype=dtype).element_size()
+    err = cuda_admm._library().admm_epoch_geometry(
+        cuda_admm._BRANCH_CODE[plan.branch], plan.tile, n, m, elem, out)
+    if err:
+        fail(f"{label}: admm_epoch_geometry refused {plan}: cudaError {err}")
+    if tuple(out) != (plan.threads, plan.instances, plan.smem_bytes):
+        fail(f"{label}: the source launches {tuple(out)} (threads, "
+             f"instances, shared bytes), the plan says {plan}")
 
 
 def kernel_phase(cuda_admm):
@@ -237,6 +265,8 @@ def kernel_phase(cuda_admm):
         got = plan and (plan.branch, plan.threads, plan.instances)
         if on_card and got != want:
             fail(f"{label}: plan {got}, expected {want}")
+        if on_card:
+            check_geometry(cuda_admm, plan, label, n, m, dtype)
         before = cuda_admm.LAUNCHES
         out = cuda_admm.polyhedral_inner_epoch(*(a[k] for k in _ORDER), **kw)
         sync()
@@ -252,8 +282,11 @@ def kernel_phase(cuda_admm):
                     torch.isnan(o[K1_NAN_LANE]).all()):
                 fail(f"{label}: the NaN lane's outputs are not all NaN")
         err, tol, noise = epoch_error(cuda_admm, a, kw, out, lanes)
-        ms = time_graph(lambda: cuda_admm.polyhedral_inner_epoch(
-            *(a[k] for k in _ORDER), **kw)) if on_card else 0.0
+        def k1():
+            return cuda_admm.polyhedral_inner_epoch(*(a[k] for k in _ORDER),
+                                                    **kw)
+        ms = time_graph(k1) if on_card else 0.0
+        ms_plain_launch = time_cuda(k1, reps=20, warmup=3) if on_card else 0.0
         plain_ms = time_cuda(lambda: cuda_admm.polyhedral_inner_epoch_plain(
             *(a[k] for k in _ORDER), **kw), reps=3)
         elem = torch.empty((), dtype=dtype).element_size()
@@ -261,7 +294,8 @@ def kernel_phase(cuda_admm):
         rec = dict(shape=label, B=B, n=n, m=m, n_zero=n_zero, iters=iters,
                    dtype=str(dtype).replace("torch.", ""),
                    plan=plan and plan._asdict(), max_abs_err=err, tol=tol,
-                   plain_f64_noise=noise, ms=ms, plain_ms=plain_ms,
+                   plain_f64_noise=noise, ms=ms, ms_method=MS_GRAPH,
+                   ms_plain_launch=ms_plain_launch, plain_ms=plain_ms,
                    bound_ms=bound, bound_by=bound_by)
         say("kernel", json.dumps(rec))
         if not err <= tol:
@@ -671,7 +705,10 @@ def kernel_record(name, source, replaces, launches, main, shapes):
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=launches, max_abs_err=main["max_abs_err"], tol=main["tol"],
-        ms=main["ms"], kernel_ms=main["ms"], plain_ms=main["plain_ms"],
+        ms=main["ms"], kernel_ms=main["ms"],
+        ms_method=main.get("ms_method", MS_EVENTS),
+        ms_plain_launch=main.get("ms_plain_launch", main["ms"]),
+        plain_ms=main["plain_ms"],
         bound_ms=main["bound_ms"], bound_by=main["bound_by"],
         library_ms=main.get("library_ms"),
         shape=" ".join(f"{k}={main[k]}" for k in

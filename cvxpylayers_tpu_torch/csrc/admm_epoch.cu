@@ -515,26 +515,67 @@ admm_epoch_reg_kernel(
     }
 }
 
+// branch codes of the C interface
+constexpr int kDevice = 0;
+constexpr int kShared = 1;
+constexpr int kRegister = 2;
+
+// How one plan launches: solver/cuda_admm.py::launch_plan states the same
+// numbers, and chip_smoke.py holds the two against each other through
+// admm_epoch_geometry.
+struct Geometry {
+  int threads;    // threads per instance
+  int instances;  // instances per block
+  size_t smem;    // dynamic shared memory per block, in bytes
+};
+
+template <typename T, int I>
+bool reg_geometry(int n, int m, Geometry* g) {
+  constexpr Tile c = kTiles[I];
+  using L = RegLayout<T, c.tpi, c.v, c.ca>;
+  if (n > 8 * c.ca || m > L::kTR * c.v || n > L::kTR * c.vm) return false;
+  *g = {c.tpi, L::kIPB, sizeof(T) * L::kSize * L::kIPB};
+  return true;
+}
+
+// The geometry of (branch, tile) at this shape; false for a plan this
+// source does not hold (an unknown branch or tile, or a tile too small).
+template <typename T>
+bool plan_geometry(int branch, int tile, int n, int m, Geometry* g) {
+  if (branch == kRegister) {
+    switch (tile) {
+      case 0: return reg_geometry<T, 0>(n, m, g);
+      case 1: return reg_geometry<T, 1>(n, m, g);
+      case 2: return reg_geometry<T, 2>(n, m, g);
+      case 3: return reg_geometry<T, 3>(n, m, g);
+    }
+    return false;
+  }
+  if (branch != kShared && branch != kDevice) return false;
+  *g = {threads_for(n, m), 1,
+        branch == kShared ? shared_bytes(n, m, (int)sizeof(T)) : 0};
+  return true;
+}
+
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
 template <typename T, int I>
 int launch_reg(const void* minv, const void* A, const void* q, const void* b,
                const void* rho, const void* x, const void* z, const void* y,
                void* x_out, void* z_out, void* y_out, int B, int n, int m,
                int n_zero, int iters, double sigma, double alpha,
-               int threads, long long smem_bytes, cudaStream_t stream) {
+               size_t smem, cudaStream_t stream) {
   constexpr Tile c = kTiles[I];
   constexpr int kMinB = sizeof(T) == 4 ? c.minb32 : c.minb64;
   using L = RegLayout<T, c.tpi, c.v, c.ca>;
-  // refuse a plan that does not match this tile
-  const size_t smem = sizeof(T) * L::kSize * L::kIPB;
-  if (threads != c.tpi || (size_t)smem_bytes != smem || n > 8 * c.ca ||
-      m > L::kTR * c.v || n > L::kTR * c.vm)
-    return (int)cudaErrorInvalidValue;
   auto kernel = admm_epoch_reg_kernel<T, c.tpi, c.v, c.vm, c.ca, kMinB>;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = allow_smem(kernel, smem);
+  if (err) return err;
   const int blocks = (B + L::kIPB - 1) / L::kIPB;
   kernel<<<blocks, L::kBlock, smem, stream>>>(
       (const T*)minv, (const T*)A, (const T*)q, (const T*)b, (const T*)rho,
@@ -544,27 +585,23 @@ int launch_reg(const void* minv, const void* A, const void* q, const void* b,
   return (int)cudaGetLastError();
 }
 
-// branch codes of the C interface
-constexpr int kDevice = 0;
-constexpr int kShared = 1;
-constexpr int kRegister = 2;
-
 template <typename T>
 int launch(const void* minv, const void* A, const void* q, const void* b,
            const void* rho, const void* x, const void* z, const void* y,
            void* x_out, void* z_out, void* y_out, void* work, int B, int n,
            int m, int n_zero, int iters, double sigma, double alpha,
-           int branch, int tile, int threads, long long smem_bytes,
-           void* stream) {
-  const int elem = (int)sizeof(T);
+           int branch, int tile, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  Geometry g;
+  if (!plan_geometry<T>(branch, tile, n, m, &g))
+    return (int)cudaErrorInvalidValue;
   if (branch == kRegister) {
     switch (tile) {
 #define K1_TILE(I)                                                          \
   case I:                                                                   \
     return launch_reg<T, I>(minv, A, q, b, rho, x, z, y, x_out, z_out,      \
                             y_out, B, n, m, n_zero, iters, sigma, alpha,    \
-                            threads, smem_bytes, st);
+                            g.smem, st);
       K1_TILE(0)
       K1_TILE(1)
       K1_TILE(2)
@@ -573,22 +610,13 @@ int launch(const void* minv, const void* A, const void* q, const void* b,
     }
     return (int)cudaErrorInvalidValue;
   }
-  if (branch != kShared && branch != kDevice) return (int)cudaErrorInvalidValue;
-  const bool in_shared = branch == kShared;
-  const size_t smem = in_shared ? shared_bytes(n, m, elem) : 0;
-  if (threads != threads_for(n, m) || (size_t)smem_bytes != smem)
-    return (int)cudaErrorInvalidValue;
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        admm_polyhedral_epoch_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  admm_polyhedral_epoch_kernel<T><<<B, threads, smem, st>>>(
+  const int err = allow_smem(admm_polyhedral_epoch_kernel<T>, g.smem);
+  if (err) return err;
+  admm_polyhedral_epoch_kernel<T><<<B, g.threads, g.smem, st>>>(
       (const T*)minv, (const T*)A, (const T*)q, (const T*)b, (const T*)rho,
       (const T*)x, (const T*)z, (const T*)y, (T*)x_out, (T*)z_out,
       (T*)y_out, (T*)work, n, m, n_zero, iters, (T)sigma, (T)alpha,
-      (T)(1.0 - alpha), (int)in_shared);
+      (T)(1.0 - alpha), (int)(branch == kShared));
   return (int)cudaGetLastError();
 }
 
@@ -605,12 +633,30 @@ int admm_epoch_smem_optin(int device) {
   return err == cudaSuccess ? optin : -1 - (int)err;
 }
 
+// threads per instance, instances per block and dynamic shared bytes of
+// one block (out[0..2]) of the plan (branch, tile) at this shape and word
+// size, as the launch below derives them; cudaErrorInvalidValue for a plan
+// this source does not hold.
+int admm_epoch_geometry(int branch, int tile, int n, int m, int elem_bytes,
+                        long long* out) {
+  Geometry g;
+  const bool ok = elem_bytes == 4
+                      ? plan_geometry<float>(branch, tile, n, m, &g)
+                      : plan_geometry<double>(branch, tile, n, m, &g);
+  if (!ok || (elem_bytes != 4 && elem_bytes != 8))
+    return (int)cudaErrorInvalidValue;
+  out[0] = g.threads;
+  out[1] = g.instances;
+  out[2] = (long long)g.smem;
+  return 0;
+}
+
 // One launch over a batch of B instances, all arrays contiguous with the
 // batch axis first, on the plan that solver/cuda_admm.py::launch_plan
-// made: `branch` 2 (register; `tile` indexes kTiles, `threads` its threads
-// per instance), 1 (shared) or 0 (device memory; `work` holds B * (2n + m)
-// elements), and the dynamic shared bytes of one block. A plan that does
-// not match this source is refused with cudaErrorInvalidValue. Returns the
+// made: `branch` 2 (register; `tile` indexes kTiles), 1 (shared) or 0
+// (device memory; `work` holds B * (2n + m) elements). The launch derives
+// its threads and shared memory from (branch, tile) and refuses, with
+// cudaErrorInvalidValue, a plan this source does not hold. Returns the
 // cudaError_t of the launch (0 on success).
 int admm_polyhedral_epoch_f32(const void* minv, const void* A, const void* q,
                               const void* b, const void* rho, const void* x,
@@ -618,11 +664,10 @@ int admm_polyhedral_epoch_f32(const void* minv, const void* A, const void* q,
                               void* z_out, void* y_out, void* work, int B,
                               int n, int m, int n_zero, int iters,
                               double sigma, double alpha, int branch,
-                              int tile, int threads, long long smem_bytes,
-                              void* stream) {
+                              int tile, void* stream) {
   return launch<float>(minv, A, q, b, rho, x, z, y, x_out, z_out, y_out, work,
                        B, n, m, n_zero, iters, sigma, alpha, branch, tile,
-                       threads, smem_bytes, stream);
+                       stream);
 }
 
 int admm_polyhedral_epoch_f64(const void* minv, const void* A, const void* q,
@@ -631,11 +676,10 @@ int admm_polyhedral_epoch_f64(const void* minv, const void* A, const void* q,
                               void* z_out, void* y_out, void* work, int B,
                               int n, int m, int n_zero, int iters,
                               double sigma, double alpha, int branch,
-                              int tile, int threads, long long smem_bytes,
-                              void* stream) {
+                              int tile, void* stream) {
   return launch<double>(minv, A, q, b, rho, x, z, y, x_out, z_out, y_out,
                         work, B, n, m, n_zero, iters, sigma, alpha, branch,
-                        tile, threads, smem_bytes, stream);
+                        tile, stream);
 }
 
 }  // extern "C"

@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Optional
+from typing import List, NamedTuple
 
 import torch
 
@@ -64,7 +64,10 @@ _VEC_SLOTS_N, _VEC_SLOTS_M = 4, 5  # version 1's vectors in shared memory
 
 
 class EpochPlan(NamedTuple):
-    """How K1 is launched for one shape."""
+    """How K1 is launched for one shape. The launch passes the branch and
+    the tile; the source derives the rest, and threads, instances and
+    smem_bytes state what it derives (chip_smoke.py holds them against
+    the source's admm_epoch_geometry on the card)."""
 
     branch: str       # "register", "shared" or "device"
     threads: int      # threads per instance
@@ -137,25 +140,16 @@ def plan_candidates(n: int, m: int, elem_bytes: int,
     return plans
 
 
-def launch_plan(n: int, m: int, elem_bytes: int, optin_bytes: int,
-                threads: Optional[int] = None) -> EpochPlan:
+def launch_plan(n: int, m: int, elem_bytes: int,
+                optin_bytes: int) -> EpochPlan:
     """K1's launch for an (m, n) A of `elem_bytes` words on a card whose
     blocks may opt into `optin_bytes` of shared memory: the register tile
     with the fewest threads that fits the shape and holds its operators
     within REGISTER_BUDGET registers a thread; else A and M^{-1} in
-    shared memory when they fit there; else read from device memory.
-    `threads` picks the register tile with that many threads per
-    instance, whatever its registers."""
+    shared memory when they fit there; else read from device memory."""
     plans = plan_candidates(n, m, elem_bytes, optin_bytes)
-    reg = [p for p in plans if p.branch == "register"]
-    if threads is not None:
-        reg = [p for p in reg if p.threads == threads]
-        if not reg:
-            raise ValueError(f"no register tile of {threads} threads fits "
-                             f"n={n}, m={m}")
-        return reg[0]
-    reg = [p for p in reg
-           if tile_registers(TILES[p.tile], elem_bytes) <= REGISTER_BUDGET]
+    reg = [p for p in plans if p.branch == "register"
+           and tile_registers(TILES[p.tile], elem_bytes) <= REGISTER_BUDGET]
     if reg:
         return min(reg, key=lambda p: p.threads)
     return next(p for p in plans if p.branch != "register")
@@ -194,11 +188,13 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of a library built from csrc/admm_epoch.cu."""
     ptr, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     for fn in (lib.admm_polyhedral_epoch_f32, lib.admm_polyhedral_epoch_f64):
-        fn.argtypes = ([ptr] * 12 + [i32] * 5 + [f64, f64] + [i32] * 3
-                       + [ctypes.c_longlong, ptr])
+        fn.argtypes = [ptr] * 12 + [i32] * 5 + [f64, f64, i32, i32, ptr]
         fn.restype = i32
     lib.admm_epoch_smem_optin.argtypes = [i32]
     lib.admm_epoch_smem_optin.restype = i32
+    lib.admm_epoch_geometry.argtypes = [i32] * 5 + [
+        ctypes.POINTER(ctypes.c_longlong)]
+    lib.admm_epoch_geometry.restype = i32
     return lib
 
 
@@ -279,7 +275,8 @@ def polyhedral_inner_epoch(minv, A, q, b, rho, x, z, y, *, n_zero: int,
 def launch(lib: ctypes.CDLL, plan: EpochPlan, minv, A, q, b, rho, x, z, y,
            *, n_zero: int, iters: int, sigma: float, alpha: float):
     """One launch of K1 from `lib` on `plan` (checked arrays on the card;
-    bench_k1.py calls it with plans of its own). Returns (x, z, y)."""
+    bench_k1.py calls it with plans of its own). The source derives the
+    launch from the plan's branch and tile alone. Returns (x, z, y)."""
     B, n = q.shape
     m = b.shape[1]
     x_out = torch.empty_like(x)
@@ -297,8 +294,7 @@ def launch(lib: ctypes.CDLL, plan: EpochPlan, minv, A, q, b, rho, x, z, y,
                  rho.data_ptr(), x.data_ptr(), z.data_ptr(), y.data_ptr(),
                  x_out.data_ptr(), z_out.data_ptr(), y_out.data_ptr(),
                  work.data_ptr(), B, n, m, n_zero, iters, float(sigma),
-                 float(alpha), _BRANCH_CODE[plan.branch], plan.tile,
-                 plan.threads, plan.smem_bytes, stream)
+                 float(alpha), _BRANCH_CODE[plan.branch], plan.tile, stream)
     if err != 0:
         raise RuntimeError(
             f"admm_polyhedral_epoch launch failed: cudaError {err}"

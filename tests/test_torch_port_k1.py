@@ -13,19 +13,25 @@ the card, where chip_smoke.py holds it against its plain version. Here:
     of packed instances: the tiles, the shuffles of the in-warp A't
     reduction and of the reduce-scatter (with its selects and its order),
     the per-warp partials, sigma x - q double-buffered, and y times
-    1 / rho, held at f64 against the port's plain version and against the
-    reference's ADMM inner step (cvxpylayers_tpu/solver/admm.py `inner`,
-    written out as a jax scan, as tests/test_torch_port_kernels.py does);
+    1 / rho, held at f64 against the port's plain version (1e-12) and
+    against the reference's own kernel, pallas_admm.polyhedral_inner_epoch
+    in interpret mode (as tests/test_torch_port_kernels.py runs it; it
+    sums its matvecs in f32 whatever the input type, so at the f32 bound);
 (d) a NaN lane stays in its lane; without a CUDA toolkit the wrapper's
     CUDA route raises instead of falling back.
 """
 
-import jax
+from unittest import mock
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
+from cvxpylayers_tpu.solver.pallas_admm import (
+    polyhedral_inner_epoch as jax_epoch,
+)
 from cvxpylayers_tpu_torch import cuda_build
 from cvxpylayers_tpu_torch.solver import cuda_admm
 
@@ -35,6 +41,8 @@ torch.set_num_threads(1)
 _OPTIN_H100 = 232448  # shared memory one block may opt into on an H100
 _ORDER = ("minv", "A", "q", "b", "rho", "x", "z", "y")
 _SIGMA, _ALPHA = 1e-6, 1.6
+# the Pallas kernel accumulates its matvecs in f32 (preferred_element_type)
+_ATOL_PALLAS = 1e-5
 
 
 def _inputs(B, n, m, seed):
@@ -201,27 +209,18 @@ def _plain(arrs, **kw):
     return [o.numpy() for o in out]
 
 
-def _reference_scan(arrs, *, n_zero, iters):
-    """The reference's ADMM inner step (solver/admm.py `inner`) as a jax
-    scan, in f64."""
-    def run(minv, A, q, b, rho, x, z, y):
-        m = b.shape[1]
+def _pallas_interpret(arrs, **kw):
+    """The reference's Pallas kernel in interpret mode, one grid step."""
+    orig_call = pl.pallas_call
 
-        def body(c, _):
-            x_, z_, y_ = c
-            rhs = _SIGMA * x_ - q + jnp.einsum("bmn,bm->bn", A, rho * z_ - y_)
-            xt = jnp.einsum("bnk,bk->bn", minv, rhs)
-            zt = jnp.einsum("bmn,bn->bm", A, xt)
-            xn = _ALPHA * xt + (1 - _ALPHA) * x_
-            w = _ALPHA * zt + (1 - _ALPHA) * z_ + y_ / rho
-            zn = jnp.where(jnp.arange(m)[None, :] < n_zero, b,
-                           b - jnp.maximum(b - w, 0.0))
-            return (xn, zn, rho * (w - zn)), None
+    def interp_call(*a, **k):
+        k["interpret"] = True
+        return orig_call(*a, **k)
 
-        out, _ = jax.lax.scan(body, (x, z, y), None, length=iters)
-        return out
-
-    out = jax.jit(run)(*(jnp.asarray(arrs[k]) for k in _ORDER))
+    with mock.patch.object(pl, "pallas_call", interp_call):
+        out = jax_epoch(*(jnp.asarray(arrs[k]) for k in _ORDER),
+                        tile=arrs["q"].shape[0], sigma=_SIGMA, alpha=_ALPHA,
+                        **kw)
     return [np.asarray(o) for o in out]
 
 
@@ -247,6 +246,9 @@ def test_launch_plan_at_chip_smoke_shapes(n, m, elem, want):
             cuda_admm.REGISTER_BUDGET)
         assert plan.threads * plan.instances == max(
             tile.threads, cuda_admm.BLOCK_THREADS)
+        assert plan.smem_bytes == cuda_admm.register_shared_bytes(tile, elem)
+    else:
+        assert plan.smem_bytes == 0
     assert plan == cuda_admm.launch_plan(n, m, elem, _OPTIN_H100)
 
 
@@ -263,11 +265,15 @@ def test_launch_plan_at_the_register_and_shared_edges():
         "shared", 128, 1, -1, need)
     assert plan(57, 120, 4, need - 1).branch == "device"
     assert plan(57, 120, 4, need - 1).smem_bytes == 0
-    # threads picks a register tile whatever its registers; none of 16
-    forced = plan(50, 120, 8, _OPTIN_H100, threads=64)
-    assert (forced.branch, forced.tile) == ("register", 0)
-    with pytest.raises(ValueError, match="no register tile of 16"):
-        plan(50, 120, 4, _OPTIN_H100, threads=16)
+    # chip_smoke.py's shared-branch cases: n = 80, m = 200 fits no tile
+    for elem in (4, 8):
+        assert plan(80, 200, elem, _OPTIN_H100) == cuda_admm.EpochPlan(
+            "shared", 256, 1, -1, cuda_admm.shared_bytes(80, 200, elem))
+    # f64 box-QP: tile 0 fits the shape but not the register budget
+    assert cuda_admm.tile_registers(cuda_admm.TILES[0], 8) > (
+        cuda_admm.REGISTER_BUDGET)
+    assert [p.tile for p in cuda_admm.plan_candidates(
+        50, 120, 8, _OPTIN_H100) if p.branch == "register"] == [0, 1]
     # shared bytes of the register branch: t, xt, sigma x - q twice and a
     # partial per warp, each padded to 16 bytes, per packed instance
     box = cuda_admm.TILES[0]
@@ -331,9 +337,9 @@ def test_tile_model_matches_plain_and_reference_f64(tile_index, B, n, m,
     kw = dict(n_zero=n_zero, iters=iters)
     model = _k1_model(arrs, tile, **kw)
     for got, plain, ref in zip(model, _plain(arrs, **kw),
-                               _reference_scan(arrs, **kw)):
+                               _pallas_interpret(arrs, **kw)):
         np.testing.assert_allclose(got, plain, rtol=0, atol=1e-12)
-        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(got, ref, rtol=0, atol=_ATOL_PALLAS)
 
 
 def test_tile_model_keeps_a_nan_lane_in_its_lane():
