@@ -18,18 +18,25 @@ Phases (any failure exits non-zero before the result line):
              graph), the plain version, the one PyTorch call that
              computes the same function where there is one, and the
              card's bound
-  3. main    the OptNet box-QP projection layer (n=50, G 20x50, B=1024,
-             f32) through CvxpyLayer(...).solve_with_info(*params), once
-             with solve_method="admm" (kernel K1) and once with "ipm"
-             (kernel K2): solved fraction, kernel launches counted from 0,
-             ms per call with fresh inputs, and agreement of the first 16
-             instances with the port's own f64 CPU run; a device profile
-             of one call of each
-  4. grad    the same layer with requires_grad on the parameters,
-             x.sum().backward(), for both methods: finite gradients,
-             agreement of the first 8 instances with the port's f64 CPU
-             gradients, ms per forward+backward
-  5. small   the simplex-projection and LAD layers at B=256, both methods
+  3. main    each layer path of PATHS at full width (B=1024, f32)
+             through CvxpyLayer(...).solve_with_info(*params), its kernel
+             launches counted from 0 just before it and read just after:
+             the OptNet box-QP projection layer (n=50, G 20x50) with
+             solve_method="admm" (kernel K1) and "ipm" (kernel K2); the
+             simplex projection at n=50 on the shared constant-P/A route
+             (no kernel: K1 must stay at 0) and, for the record, on the
+             dense route; a box-constrained LP through the self-dual
+             embedding (K2 once per iteration). Solved fraction, route,
+             iterations, ms per call with fresh inputs, agreement of the
+             first lanes with the port's own f64 CPU run; a device
+             profile of one call of each but the dense simplex
+  4. grad    the same paths with requires_grad on the parameters and a
+             backward pass: finite gradients, agreement of the first 8
+             instances with the port's f64 CPU gradients, ms per
+             forward+backward
+  5. small   the simplex-projection and LAD layers at B=256 by every
+             route: shared and dense ADMM, the IPM's primal-dual form and
+             its self-dual embedding
 
 Imports nothing of JAX or of cvxpylayers_tpu. The second-to-last lines
 are the card's name and power limit and the per-kernel JSON record; the
@@ -450,12 +457,29 @@ def box_qp_params(r, B, n=50, m_ineq=20):
             np.abs(r.standard_normal((B, m_ineq))) + 1.0]
 
 
+def box_lp_layer(ct, device, n=50, m_ineq=20):
+    """The box-QP's constraints under a linear cost v'x: an LP layer of
+    the prediction-and-optimisation kind, whose interior-point route is
+    the self-dual embedding."""
+    x = ct.Variable(n)
+    v = ct.Parameter(n)
+    G = ct.Parameter((m_ineq, n))
+    h = ct.Parameter(m_ineq)
+    prob = ct.Problem(ct.Minimize(v @ x), [G @ x <= h, x >= 0, x <= 1])
+    return ct.CvxpyLayer(prob, parameters=[v, G, h], variables=[x],
+                         device=device)
+
+
 def simplex_layer(ct, device, n=20):
     x = ct.Variable(n)
     v = ct.Parameter(n)
     prob = ct.Problem(ct.Minimize(ct.sum_squares(x - v)),
                       [ct.sum(x) == 1, x >= 0])
     return ct.CvxpyLayer(prob, parameters=[v], variables=[x], device=device)
+
+
+def simplex_params(r, B, n=50):
+    return [r.standard_normal((B, n))]
 
 
 def lad_layer(ct, device, n=2, m=3):
@@ -477,17 +501,96 @@ def sync():
         torch.cuda.synchronize()
 
 
-def main_path_phase(ct, counters, method, calls=4, B=1024):
-    """The box-QP layer at full width through solve_with_info, with
-    solve_method `method`. `counters` maps each kernel's name to the
-    module that counts its launches; every count is set to 0 just before
-    the calls and read just after."""
+class Path:
+    """A layer path at full width: its layer, its parameters (and their
+    names), its solver_args, the kernel it must launch (`wants`), the
+    kernel it must not launch (`forbids`), the route it must take
+    ("dense" or "shared"), the lanes held against the port's own f64 CPU
+    run, and whether the gradient phase weighs x by a seeded vector
+    (sum(x) is constant on the simplex, so its gradient is zero)."""
+
+    def __init__(self, name, layer, build, params, names, args, wants,
+                 forbids, route, agree_lanes, weighted=False):
+        self.name, self.layer, self.build = name, layer, build
+        self.params, self.names, self.args = params, names, args
+        self.wants, self.forbids, self.route = wants, forbids, route
+        self.agree_lanes, self.weighted = agree_lanes, weighted
+
+
+PATHS = {
+    # the main path and its interior-point twin: OptNet's box-QP
+    "admm": Path("admm", "box_qp", box_qp_layer, box_qp_params, "vGh",
+                 dict(BOX_QP_ARGS, solve_method="admm"), "K1", None,
+                 "dense", 16),
+    "ipm": Path("ipm", "box_qp", box_qp_layer, box_qp_params, "vGh",
+                dict(BOX_QP_ARGS, solve_method="ipm"), "K2", None, "dense",
+                16),
+    # the sparsemax-style simplex projection: P and A are constant, so
+    # the default call takes the shared-factor route, which has no kernel
+    "shared": Path("shared", "simplex",
+                   lambda ct, dev: simplex_layer(ct, dev, n=50),
+                   simplex_params, "v", SIMPLEX_ARGS, None, "K1", "shared",
+                   8, weighted=True),
+    # the same instances on the dense per-instance route, for the record
+    "shared_off": Path("shared_off", "simplex",
+                       lambda ct, dev: simplex_layer(ct, dev, n=50),
+                       simplex_params, "v",
+                       dict(SIMPLEX_ARGS, shared_setup="off"), "K1", None,
+                       "dense", 8),
+    # an LP through the interior-point method's default form, the
+    # self-dual embedding: K2 once per iteration at (B, 170, 50). The
+    # IPM's own target is eps/100 (SolverSettings.ipm_eps_abs): an IPM
+    # that stops at eps hands the polish points on the edge of its basin
+    # on this LP, and a sixth of the lanes end MAX_ITERS after the
+    # polish, in f64 as in f32, in both packages (1.5 % at eps/10). The
+    # cap of 40 iterations cuts the f32 tail of lanes that creep toward
+    # that target for 50-150 iterations; they keep their best iterate.
+    # An LP's f32 KKT solves (polish and adjoint) run CG on the normal
+    # equations: 40 steps leave gradients 0.3-2 off the f64 ones on some
+    # lanes, in both packages; 200 reach the f64 gradient
+    "hsde": Path("hsde", "box_lp", box_lp_layer, box_qp_params, "vGh",
+                 ipm_args(LAD_ARGS, ipm_eps_abs=1e-6, ipm_max_iters=40,
+                          cg_iters=200),
+                 "K2", None, "dense", 8),
+}
+
+
+def route_of(layer, args):
+    """The route the layer takes for these solver_args, and for the
+    interior-point method the form (the self-dual embedding when P is
+    structurally zero under ipm_mode "auto" or "hsde")."""
+    from cvxpylayers_tpu_torch.layer.cvxpylayer import _settings_from_args
+
+    st = _settings_from_args(layer._base_settings, args)
+    route = "shared" if layer._use_shared(st) else "dense"
+    form = None
+    if st.solve_method == "ipm":
+        form = ("hsde" if layer.prog.P_rows.size == 0
+                and st.ipm_mode in ("auto", "hsde") else "pd")
+    return route, form
+
+
+def check_launches(what, launches, wants, forbids):
+    if DEV != "cuda":
+        return
+    if wants and launches[wants] == 0:
+        fail(f"{what}: {wants} was never launched")
+    if forbids and launches[forbids] != 0:
+        fail(f"{what}: {forbids} was launched {launches[forbids]} times "
+             "on a route without it")
+
+
+def main_path_phase(ct, counters, path, calls=4, B=1024):
+    """A layer path at full width through solve_with_info. `counters`
+    maps each kernel's name to the module that counts its launches;
+    every count is set to 0 just before the calls and read just after."""
     r = np.random.default_rng(0)
-    args = dict(BOX_QP_ARGS, solve_method=method)
-    wants = {"admm": "K1", "ipm": "K2"}[method]
-    layer = box_qp_layer(ct, DEV)
+    layer = path.build(ct, DEV)
+    route, form = route_of(layer, path.args)
+    if route != path.route:
+        fail(f"{path.name}: route {route}, expected {path.route}")
     # fresh inputs for every call, made up front and moved in bulk
-    host = [box_qp_params(r, B) for _ in range(calls + 1)]
+    host = [path.params(r, B) for _ in range(calls + 1)]
     inputs = [to_dev(h, torch.float32) for h in host]
     sync()
 
@@ -500,7 +603,7 @@ def main_path_phase(ct, counters, method, calls=4, B=1024):
     for i, params in enumerate(inputs):
         t0 = time.perf_counter()
         (x,), status, iters = layer.solve_with_info(
-            *params, solver_args=args)
+            *params, solver_args=path.args)
         sync()
         dt = (time.perf_counter() - t0) * 1e3
         if i == 0:
@@ -510,49 +613,53 @@ def main_path_phase(ct, counters, method, calls=4, B=1024):
         solved.append(float((status == 0).float().mean()))
         iters_max.append(int(iters.max()))
     launches = {k: mod.LAUNCHES for k, mod in counters.items()}
-    if DEV == "cuda" and launches[wants] == 0:
-        fail(f"main path ({method}): {wants} was never launched")
+    check_launches(f"{path.name} path", launches, path.wants, path.forbids)
+    if route == "shared" and not layer._shared_solvers:
+        fail(f"{path.name}: the shared solver never ran")
 
     x, status, iters = first
-    if tuple(x.shape) != (B, 50) or not bool(torch.isfinite(x).all()):
-        fail(f"main path ({method}): bad output {tuple(x.shape)}")
-    # reference: the port's own f64 CPU run on the first 16 instances
-    k = 16
-    cpu_layer = box_qp_layer(ct, "cpu")
+    n = layer.prog.var_info[id(layer._outputs[0][1])].shape[0]
+    if tuple(x.shape) != (B, n) or not bool(torch.isfinite(x).all()):
+        fail(f"{path.name} path: bad output {tuple(x.shape)}")
+    # reference: the port's own f64 CPU run on the first lanes
+    k = path.agree_lanes
+    cpu_layer = path.build(ct, "cpu")
     (x64,), st64, _ = cpu_layer.solve_with_info(
         *to_dev([h[:k] for h in host[0]], torch.float64, "cpu"),
-        solver_args=args)
+        solver_args=path.args)
     diff = float((x[:k].double().cpu() - x64).abs().max())
     res = dict(
-        layer="box_qp", solve_method=method, n=50, m_ineq=20,
-        m=layer.prog.m, B=B,
-        dtype="float32", solver_args=args, calls=len(inputs),
+        path=path.name, layer=path.layer, route=route, ipm_form=form,
+        n=n, m=layer.prog.m, B=B,
+        dtype="float32", solver_args=path.args, calls=len(inputs),
         solved_fraction_first=solved[0],
         solved_fraction_min=min(solved),
         iters_max_per_call=iters_max,
         iters_mean_first=float(iters.float().mean()),
-        launches_before={k: 0 for k in counters},
+        launches_before={k_: 0 for k_ in counters},
         launches_after=launches,
-        launches_per_call={k: v / len(inputs) for k, v in launches.items()},
+        launches_per_call={k_: v / len(inputs)
+                           for k_, v in launches.items()},
         median_ms_per_call=statistics.median(times),
         ms_per_call=times,
         solves_per_s=B / statistics.median(times) * 1e3,
-        max_abs_diff_vs_f64_cpu_first16=diff,
-        f64_cpu_solved_first16=float((st64 == 0).double().mean()),
+        agree_lanes=k,
+        max_abs_diff_vs_f64_cpu=diff,
+        f64_cpu_solved=float((st64 == 0).double().mean()),
     )
     say("main", json.dumps(res))
     if min(solved) < 0.99:
-        fail(f"main path ({method}): solved fraction {min(solved)} < 0.99")
+        fail(f"{path.name} path: solved fraction {min(solved)} < 0.99")
     # f32 at eps 1e-4 against f64: the solution agrees to ~1e-4, and
     # 2e-3 leaves room for the loosest certified lanes
     if diff > 2e-3:
-        fail(f"main path ({method}): f32 cuda vs f64 cpu max abs diff "
+        fail(f"{path.name} path: f32 cuda vs f64 cpu max abs diff "
              f"{diff:.3e}")
-    return res, launches[wants]
+    return res, launches[path.wants] if path.wants else 0
 
 
 def device_profile(layer, params, args):
-    """Device time by kernel name for one main-path call."""
+    """Device time by kernel name for one layer call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -575,35 +682,45 @@ def device_profile(layer, params, args):
     return total, count, rows[:8]
 
 
-def profile_phase(ct, method):
-    layer = box_qp_layer(ct, DEV)
-    args = dict(BOX_QP_ARGS, solve_method=method)
-    params = to_dev(box_qp_params(np.random.default_rng(7), 1024),
+def profile_phase(ct, path):
+    layer = path.build(ct, DEV)
+    params = to_dev(path.params(np.random.default_rng(7), 1024),
                     torch.float32)
-    layer.solve_with_info(*params, solver_args=args)  # warm-up
+    layer.solve_with_info(*params, solver_args=path.args)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    total_us, count, top = device_profile(layer, params, args)
+    total_us, count, top = device_profile(layer, params, path.args)
     wall_ms = (time.perf_counter() - t0) * 1e3
-    say(f"profile ({method}): one main-path call runs {count} device "
+    say(f"profile ({path.name}): one call runs {count} device "
         f"kernels for {total_us / 1e3:.3f} ms of device time "
         f"({wall_ms:.1f} ms on the host clock with the profiler on); "
         "top (us, name, count):")
     for us, key, n_calls in top:
         say(f"  {us:10.1f}  {key[:90]}  x{n_calls}")
+    say("profile_record", json.dumps(dict(
+        path=path.name, device_kernels=count, device_ms=total_us / 1e3,
+        host_ms_profiler_on=wall_ms)))
 
 
-def gradient_phase(ct, counters, method, calls=3, B=1024):
-    """Forward + backward through the box-QP layer: finite gradients of
-    sum(x) with respect to (v, G, h), and the first 8 instances' gradients
-    against the port's f64 CPU gradients of the same instances. At eps
-    1e-4 the f32 solution sits ~1e-7 from the f64 one after the polish
-    and the adjoint solve takes one refinement pass, so gradients agree to
-    ~1e-4 of their scale; 1e-2 is the limit."""
+def gradient_phase(ct, counters, path, calls=3, B=1024):
+    """Forward + backward through a layer path: finite gradients of
+    sum(x) (of w'x with a seeded w on a weighted path) with respect to
+    every parameter, and the first 8 instances'
+    gradients against the port's f64 CPU gradients of the same
+    instances. At eps 1e-4 the f32 solution sits ~1e-7 from the f64 one
+    after the polish and the adjoint solve takes one refinement pass, so
+    gradients agree to ~1e-4 of their scale; 1e-2 is the limit. Each
+    parameter's error is taken over its own largest f64 gradient, or
+    over 1e-3 of the largest of all parameters where that is larger: an
+    LP's solution does not move with its cost vector, so that gradient
+    is zero up to rounding and has no scale of its own."""
     r = np.random.default_rng(11)
-    args = dict(BOX_QP_ARGS, solve_method=method)
-    layer = box_qp_layer(ct, DEV)
-    host = [box_qp_params(r, B) for _ in range(calls + 1)]
+    layer = path.build(ct, DEV)
+    host = [path.params(r, B) for _ in range(calls + 1)]
+    n = layer.prog.var_info[id(layer._outputs[0][1])].shape[0]
+    w = (np.random.default_rng(12).standard_normal((B, n)) if path.weighted
+         else np.ones((B, n)))
+    w32 = to_dev([w], torch.float32)[0]
     for mod in counters.values():
         mod.LAUNCHES = 0
     times = []
@@ -612,8 +729,9 @@ def gradient_phase(ct, counters, method, calls=3, B=1024):
         params = [t.requires_grad_() for t in to_dev(h, torch.float32)]
         sync()
         t0 = time.perf_counter()
-        (x,), status, _ = layer.solve_with_info(*params, solver_args=args)
-        x.sum().backward()
+        (x,), status, _ = layer.solve_with_info(*params,
+                                                solver_args=path.args)
+        (x * w32).sum().backward()
         sync()
         dt = (time.perf_counter() - t0) * 1e3
         if i == 0:
@@ -622,37 +740,45 @@ def gradient_phase(ct, counters, method, calls=3, B=1024):
             times.append(dt)
         for p in params:
             if p.grad is None or tuple(p.grad.shape) != tuple(p.shape):
-                fail(f"gradient ({method}): a parameter got no gradient")
+                fail(f"gradient ({path.name}): a parameter got no "
+                     "gradient")
             if not bool(torch.isfinite(p.grad).all()):
-                fail(f"gradient ({method}): non-finite gradient")
+                fail(f"gradient ({path.name}): non-finite gradient")
     launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+    check_launches(f"gradient ({path.name})", launches, path.wants,
+                   path.forbids)
 
     k = 8
     params, status = first
-    cpu_layer = box_qp_layer(ct, "cpu")
+    cpu_layer = path.build(ct, "cpu")
     ref = [t.requires_grad_() for t in
            to_dev([a[:k] for a in host[0]], torch.float64, "cpu")]
-    (x64,), st64, _ = cpu_layer.solve_with_info(*ref, solver_args=args)
-    x64.sum().backward()
+    (x64,), st64, _ = cpu_layer.solve_with_info(*ref, solver_args=path.args)
+    (x64 * to_dev([w[:k]], torch.float64, "cpu")[0]).sum().backward()
     both = (status[:k].cpu() == 0) & (st64 == 0)
     if not bool(both.any()):
-        fail(f"gradient ({method}): no lane solved on both devices")
+        fail(f"gradient ({path.name}): no lane solved on both devices")
+    overall = max(float(q.grad[both].abs().max()) for q in ref)
     rel = []
     for p, q in zip(params, ref):
         g = p.grad[:k].double().cpu()[both]
         g64 = q.grad[both]
-        rel.append(float((g - g64).abs().max() / g64.abs().max()))
-    res = dict(layer="box_qp", solve_method=method, B=B, dtype="float32",
+        rel.append(float((g - g64).abs().max()
+                         / max(float(g64.abs().max()), 1e-3 * overall)))
+    res = dict(path=path.name, layer=path.layer, B=B, dtype="float32",
+               loss="w'x, w seeded" if path.weighted else "sum(x)",
                calls=len(host), fwd_bwd_median_ms=statistics.median(times),
                fwd_bwd_ms=times, launches=launches,
                solved_fraction_first=float((status == 0).float().mean()),
                lanes_compared=int(both.sum()),
-               grad_rel_err_vs_f64_cpu_first8=dict(zip("vGh", rel)),
-               grad_abs_max=[float(p.grad.abs().max()) for p in params])
+               grad_rel_err_vs_f64_cpu_first8=dict(zip(path.names, rel)),
+               grad_abs_max=[float(p.grad.abs().max()) for p in params],
+               grad_abs_max_f64_first8=[float(q.grad.abs().max())
+                                        for q in ref])
     say("grad", json.dumps(res))
     if max(rel) > 1e-2:
-        fail(f"gradient ({method}): relative error {max(rel):.3e} against "
-             "the f64 CPU gradient > 1e-2")
+        fail(f"gradient ({path.name}): relative error {max(rel):.3e} "
+             "against the f64 CPU gradient > 1e-2")
     return res
 
 
@@ -662,16 +788,29 @@ def small_layers_phase(ct, counters):
     out = {}
     simplex_v = [r.standard_normal((B, 20))]
     lad_ab = [r.standard_normal((B, 3, 2)), r.standard_normal((B, 3))]
-    for name, build, params, args, wants in (
-        ("simplex", simplex_layer, simplex_v, SIMPLEX_ARGS, "K1"),
-        ("lad", lad_layer, lad_ab, LAD_ARGS, "K1"),
+    # (name, layer, parameters, solver_args, kernel wanted, kernel
+    # forbidden, route)
+    for name, build, params, args, wants, forbids, want_route in (
+        # P and A constant: the default call takes the shared route
+        ("simplex", simplex_layer, simplex_v, SIMPLEX_ARGS, None, "K1",
+         "shared"),
+        # the dense route keeps K1's packed four-to-a-block tile on a
+        # layer path
+        ("simplex_dense", simplex_layer, simplex_v,
+         dict(SIMPLEX_ARGS, shared_setup="off"), "K1", None, "dense"),
+        ("lad", lad_layer, lad_ab, LAD_ARGS, "K1", None, "dense"),
         ("simplex_ipm", simplex_layer, simplex_v, ipm_args(SIMPLEX_ARGS),
-         "K2"),
-        # an LP: the primal-dual form has to be asked for by name
-        ("lad_ipm", lad_layer, lad_ab, ipm_args(LAD_ARGS, ipm_mode="pd"),
-         "K2"),
+         "K2", None, "dense"),
+        # an LP: the default form is the self-dual embedding
+        ("lad_ipm", lad_layer, lad_ab, ipm_args(LAD_ARGS), "K2", None,
+         "dense"),
+        ("lad_ipm_pd", lad_layer, lad_ab, ipm_args(LAD_ARGS, ipm_mode="pd"),
+         "K2", None, "dense"),
     ):
         layer = build(ct, DEV)
+        route, form = route_of(layer, args)
+        if route != want_route:
+            fail(f"{name}: route {route}, expected {want_route}")
         dev = to_dev(params, torch.float32)
         for mod in counters.values():
             mod.LAUNCHES = 0
@@ -679,8 +818,7 @@ def small_layers_phase(ct, counters):
         sync()
         launches = {k: mod.LAUNCHES for k, mod in counters.items()}
         solved = float((status == 0).float().mean())
-        if DEV == "cuda" and launches[wants] == 0:
-            fail(f"{name}: {wants} was never launched")
+        check_launches(name, launches, wants, forbids)
         if not bool(torch.isfinite(x).all()):
             fail(f"{name}: non-finite output")
         k = 8
@@ -691,7 +829,8 @@ def small_layers_phase(ct, counters):
         both = ((status[:k].cpu() == 0) & (st64 == 0))
         diff = float((x[:k].double().cpu() - x64).abs().max(dim=1)
                      .values[both].max()) if bool(both.any()) else None
-        rec = dict(layer=name, B=B, dtype="float32", solved_fraction=solved,
+        rec = dict(layer=name, B=B, dtype="float32", route=route,
+                   ipm_form=form, solved_fraction=solved,
                    iters_max=int(iters.max()), launches=launches,
                    max_abs_diff_vs_f64_cpu_solved_lanes=diff)
         say("small", json.dumps(rec))
@@ -761,16 +900,18 @@ def main():
     k1, k1_shapes = kernel_phase(cuda_admm)
     k2, k2_shapes = qr_kernel_phase(cuda_linalg)
 
-    # ---- 3. main paths at full width, each with its counts from 0
+    # ---- 3. the paths at full width, each with its counts from 0
     counters = {"K1": cuda_admm, "K2": cuda_linalg}
-    _, k1_launches = main_path_phase(ct, counters, "admm")
-    _, k2_launches = main_path_phase(ct, counters, "ipm")
-    profile_phase(ct, "admm")
-    profile_phase(ct, "ipm")
+    _, k1_launches = main_path_phase(ct, counters, PATHS["admm"])
+    _, k2_launches = main_path_phase(ct, counters, PATHS["ipm"])
+    for name in ("shared", "shared_off", "hsde"):
+        main_path_phase(ct, counters, PATHS[name])
+    for name in ("admm", "ipm", "shared", "hsde"):
+        profile_phase(ct, PATHS[name])
 
     # ---- 4. gradients through the layer
-    gradient_phase(ct, counters, "admm")
-    gradient_phase(ct, counters, "ipm")
+    for name in ("admm", "ipm", "shared", "hsde"):
+        gradient_phase(ct, counters, PATHS[name])
 
     # ---- 5. small layers
     small_layers_phase(ct, counters)

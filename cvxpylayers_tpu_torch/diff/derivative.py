@@ -13,9 +13,9 @@ dense problem data (P, q, A, b):
 Everything around the dense (P, q, A, b) (the scatter from the
 parameter-affine value vectors, batching, variable recovery) is plain
 differentiable torch, so this is the only custom rule in the package.
-The base solver is ADMM (`solve_method="admm"`) or the primal-dual
-interior-point method (`"ipm"`); PDHG and the forward-mode rule
-(`derivative="forward"`) are not ported yet and raise.
+The base solver is ADMM (`solve_method="admm"`) or the interior-point
+method (`"ipm"`, primal-dual or self-dual embedding); PDHG and the
+forward-mode rule (`derivative="forward"`) are not ported yet and raise.
 """
 
 from __future__ import annotations
@@ -90,8 +90,8 @@ def make_diff_solver(dims: ConeDims, n: int, settings: SolverSettings,
     p_diag_full: static flag, True iff P's diagonal is structurally
     complete; routes the f32 KKT solves between the exact Schur split and
     CG-normal (kkt.py). p_zero: static flag, True iff P is structurally
-    zero; the reference's IPM then takes the homogeneous self-dual
-    embedding under ipm_mode="auto", which is not ported yet."""
+    zero; the IPM then takes the homogeneous self-dual embedding under
+    ipm_mode="auto" (and "hsde" requires it)."""
     if settings.derivative == "forward":
         raise NotImplementedError(
             "derivative='forward' (the JVP rule) is not ported yet; pass "

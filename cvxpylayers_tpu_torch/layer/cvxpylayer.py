@@ -11,7 +11,11 @@ index_add_), a dense scatter into batched (P, q, A, b), the batched
 solve (ADMM or the interior-point method, then the Newton polish), and
 slice/reshape recovery. Everything but the solve is plain differentiable
 torch; the solve carries the implicit-function adjoint
-(diff/derivative.py).
+(diff/derivative.py). When P and A depend on no parameter, the default
+`shared_setup="auto"` takes the shared-factor route instead: only q and b
+are assembled, a batched ADMM with one factor for the whole batch
+(solver/shared.py) runs without autograd, and the per-instance polish and
+adjoint start from its iterates with the ADMM loop off.
 
 Device contract: the layer runs on `device` ("cuda" unless the caller asks
 for another); it raises where CUDA is absent and never falls back to the
@@ -283,6 +287,13 @@ class CvxpyLayer:
         )
         # strictly-diagonal P: the f32 Schur split inverts it elementwise
         self._p_diag_only = bool(self._p_diag_full and diag_mask.all())
+        # constant-P/A detection (the reference's PA_is_constant): enables
+        # the shared-factor setup/solve split (solver/shared.py)
+        self._pa_constant = bool(
+            p.m > 0 and p.A_is_constant and p.P_is_constant
+        )
+        self._shared_solvers: Dict[SolverSettings, object] = {}
+        self._shared_consts: Dict[torch.dtype, tuple] = {}
         self._solvers: Dict[SolverSettings, object] = {}
         # eager warm-start cache (warm_start=True): the last (x, y, s)
         self._warm: Optional[WarmStart] = None
@@ -305,12 +316,35 @@ class CvxpyLayer:
                 "the sparse (matrix-free) assembly route arrives with a "
                 "later port slice"
             )
-        if settings.shared_setup == "on":
-            raise NotImplementedError(
-                "shared_setup='on' (the constant-P/A shared-factor route) "
-                "arrives with a later port slice; 'auto' takes the dense "
-                "per-instance route"
+
+    def _use_shared(self, settings: SolverSettings) -> bool:
+        """True when the constant-P/A shared-factor setup/solve split
+        applies (solver/shared.py). Only the dense assembly route exists
+        here (_check_route refuses the sparse one first)."""
+        if settings.shared_setup == "off":
+            return False
+        applicable = (
+            self._pa_constant
+            and settings.solve_method == "admm"
+            and settings.accel_lookback == 0
+        )
+        if settings.shared_setup == "on" and not applicable:
+            raise ValueError(
+                "shared_setup='on' requires parameter-independent P and"
+                " A, solve_method='admm', accel_lookback=0 and the "
+                "dense assembly route"
             )
+        return applicable
+
+    def _shared_solver(self, settings: SolverSettings):
+        if settings not in self._shared_solvers:
+            from ..solver.shared import make_shared_admm_solver
+
+            self._shared_solvers[settings] = make_shared_admm_solver(
+                self.prog.dims, self.prog.n, settings,
+                self.prog.constant_P(), self.prog.constant_A(),
+            )
+        return self._shared_solvers[settings]
 
     def _solver(self, settings: SolverSettings):
         if settings not in self._solvers:
@@ -395,17 +429,57 @@ class CvxpyLayer:
         n, m = prog.n, prog.m
         A = p_ext.new_zeros(B, m * n)
         A[:, self._A_flat] = self._apply_A(p_ext)
-        b = p_ext.new_zeros(B, m)
-        b[:, self._b_rows] = self._apply_b(p_ext)
-        q_full = self._apply_q(p_ext)
+        q, b, offset = self._assemble_qb(p_ext)
         P = p_ext.new_zeros(B, n * n)
         if prog.P_rows.size:
             P.index_add_(1, self._P_flat, self._apply_P(p_ext))
         P = P.view(B, n, n)
         if prog.P_rows.size:
             P = 0.5 * (P + P.mT)
-        return (P.contiguous(), q_full[:, :-1].contiguous(),
-                A.view(B, m, n), b, q_full[:, -1])
+        return P.contiguous(), q, A.view(B, m, n), b, offset
+
+    def _assemble_qb(self, p_ext: torch.Tensor):
+        """p_ext (B, n_param+1) -> (q, b, offset) only: the shared
+        route's assembly (P and A are constants there)."""
+        b = p_ext.new_zeros(p_ext.shape[0], self.prog.m)
+        b[:, self._b_rows] = self._apply_b(p_ext)
+        q_full = self._apply_q(p_ext)
+        return q_full[:, :-1].contiguous(), b, q_full[:, -1]
+
+    def _shared_constants(self, dtype: torch.dtype):
+        """The constant P (n, n) and A (m, n) on the layer's device."""
+        if dtype not in self._shared_consts:
+            self._shared_consts[dtype] = tuple(
+                torch.as_tensor(a, dtype=dtype, device=self.device)
+                for a in (self.prog.constant_P(), self.prog.constant_A())
+            )
+        return self._shared_consts[dtype]
+
+    def _solve_shared(self, settings, p_ext, x0, y0, s0):
+        """The two-phase constant-P/A solve: the shared-factor batched
+        ADMM (solver/shared.py) without autograd, then the per-instance
+        polish and implicit adjoint with the ADMM loop off
+        (max_iters=0), warm-started at the shared phase's iterates. P
+        and A enter the polish as constants expanded to the batch (no
+        copies, no gradient), so gradients flow to q and b through the
+        per-instance implicit-function rule alone."""
+        shared = self._shared_solver(settings)
+        solver = self._solver(
+            settings.replace(max_iters=0, scaling_iters=0))
+        q, b, _ = self._assemble_qb(p_ext)
+        with torch.no_grad():
+            res = shared(q.detach(), b.detach(), x0, y0, s0)
+        B = p_ext.shape[0]
+        P_c, A_c = self._shared_constants(p_ext.dtype)
+        x, y, s, st_in, _ = solver(
+            P_c.expand(B, *P_c.shape), q, A_c.expand(B, *A_c.shape), b,
+            res.x, res.y, res.s)
+        # the polish cannot see infeasibility (it only measures KKT
+        # residuals): the shared phase's certificates win
+        certified = ((res.status == PRIMAL_INFEASIBLE)
+                     | (res.status == DUAL_INFEASIBLE))
+        status = torch.where(certified, res.status, st_in)
+        return x, y, s, status, res.iters
 
     def _recover(self, x, y):
         """Batched (B, n) / (B, m) iterates -> the requested outputs."""
@@ -490,14 +564,17 @@ class CvxpyLayer:
 
         # the assembly records an autograd graph; the solve is one
         # autograd.Function with the implicit adjoint
-        solver = self._solver(settings)
+        def run():
+            if self._use_shared(settings):
+                return self._solve_shared(settings, p_ext, x0, y0, s0)
+            P, q, A, b, _ = self._assemble(p_ext)
+            return self._solver(settings)(P, q, A, b, x0, y0, s0)
+
         if settings.matmul_precision != "default":
             with full_f32():
-                P, q, A, b, _ = self._assemble(p_ext)
-                x, y, s, status, iters = solver(P, q, A, b, x0, y0, s0)
+                x, y, s, status, iters = run()
         else:
-            P, q, A, b, _ = self._assemble(p_ext)
-            x, y, s, status, iters = solver(P, q, A, b, x0, y0, s0)
+            x, y, s, status, iters = run()
 
         if self.verbose:
             st = status.cpu()

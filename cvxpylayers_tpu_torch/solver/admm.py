@@ -191,7 +191,11 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
         Ps, As, qs, bs, D, E, c = _ruiz_equilibrate(
             P, A, q, b, group_ids, n_groups, st.scaling_iters
         )
-        Ps, As, qs, bs = (t.contiguous() for t in (Ps, As, qs, bs))
+        if st.max_iters > 0:
+            # K1 reads dense operands; with max_iters=0 (the shared
+            # route's polish) no epoch runs, and P and A stay the
+            # caller's batch-expanded constants instead of B copies
+            Ps, As, qs, bs = (t.contiguous() for t in (Ps, As, qs, bs))
 
         # scaled warm start: x̄ = x/D, z̄ = E (b0 - s), ȳ = c y / E
         x = x0 / D

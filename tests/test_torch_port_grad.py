@@ -208,17 +208,18 @@ def test_layer_ipm_on_lp_needs_primal_dual_mode():
     vals = [r.standard_normal((3, 3, 2)), r.standard_normal((3, 3))]
     lt = lad(ct, device="cpu")
     tin = [torch.as_tensor(a) for a in vals]
-    # ipm_mode="auto" on an LP is the reference's self-dual embedding
-    with pytest.raises(NotImplementedError, match="ipm_mode='pd'"):
-        lt(*tin, solver_args={"solve_method": "ipm"})
-    args = {"solve_method": "ipm", "ipm_mode": "pd"}
-    oj, sj, ij = lad(cj).solve_with_info(*(jnp.asarray(a) for a in vals),
-                                         solver_args=args)
-    ot, st, it = lt.solve_with_info(*tin, solver_args=args)
-    np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
-    np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
-    np.testing.assert_allclose(ot[0].numpy(), np.asarray(oj[0]), atol=_ATOL,
-                               rtol=0)
+    # ipm_mode="auto" on an LP is the self-dual embedding in both
+    # packages; the primal-dual form is asked for by name
+    lj = lad(cj)
+    for args in ({"solve_method": "ipm"},
+                 {"solve_method": "ipm", "ipm_mode": "pd"}):
+        oj, sj, ij = lj.solve_with_info(*(jnp.asarray(a) for a in vals),
+                                        solver_args=args)
+        ot, st, it = lt.solve_with_info(*tin, solver_args=args)
+        np.testing.assert_array_equal(st.numpy(), np.asarray(sj))
+        np.testing.assert_array_equal(it.numpy(), np.asarray(ij))
+        np.testing.assert_allclose(ot[0].numpy(), np.asarray(oj[0]),
+                                   atol=_ATOL, rtol=0)
 
 
 def _simplex(**kw):

@@ -290,15 +290,12 @@ def test_ipm_f32_cholesky_route_above_the_gate(monkeypatch):
 
 def test_ipm_unported_routes_raise():
     st = TSettings().replace(solve_method="ipm")
-    with pytest.raises(NotImplementedError, match="ipm_mode='pd'"):
-        t_ipm(TDims(nonneg=3), 2, st, hsde=True)
-    # ipm_mode="auto" on a problem without a quadratic objective is the
-    # reference's HSDE: refuse it instead of solving another formulation
-    with pytest.raises(NotImplementedError, match="ipm_mode='pd'"):
-        make_diff_solver(TDims(nonneg=3), 2, st, p_zero=True)
-    with pytest.raises(NotImplementedError, match="ipm_mode='pd'"):
-        make_diff_solver(TDims(nonneg=3), 2, st.replace(ipm_mode="hsde"),
-                         p_zero=True)
+    # the self-dual embedding is ported: "auto" on a problem without a
+    # quadratic objective and "hsde" build, as in the reference
+    t_ipm(TDims(nonneg=3), 2, st, hsde=True)
+    make_diff_solver(TDims(nonneg=3), 2, st, p_zero=True)
+    make_diff_solver(TDims(nonneg=3), 2, st.replace(ipm_mode="hsde"),
+                     p_zero=True)
     make_diff_solver(TDims(nonneg=3), 2, st.replace(ipm_mode="pd"),
                      p_zero=True)
     make_diff_solver(TDims(nonneg=3), 2, st, p_zero=False)

@@ -91,8 +91,8 @@ def test_box_qp_matches_reference():
 
 def test_simplex_matches_reference():
     vals = [np.random.default_rng(1).standard_normal((5, 6))]
-    # the reference would take its shared constant-P/A route by default
-    ref, got = _both(simplex, vals, jax_args={"shared_setup": "off"})
+    # P and A are constant: both packages take the shared route by default
+    ref, got = _both(simplex, vals)
     _assert_match(ref, got)
     np.testing.assert_allclose(got[0][0].sum(dim=1).numpy(), 1.0, atol=1e-8)
 
@@ -213,10 +213,10 @@ _ROUTE_CASES = {
     "simplex": (simplex,
                 lambda: [np.random.default_rng(8).standard_normal((3, 6))],
                 {}),
-    # an LP: the interior-point route needs its primal-dual form here
+    # an LP: the interior-point route takes the self-dual embedding
     "lad": (lad, lambda: [np.random.default_rng(9).standard_normal((3, 3, 2)),
                           np.random.default_rng(10).standard_normal((3, 3))],
-            {"ipm_mode": "pd"}),
+            {}),
 }
 
 
