@@ -77,6 +77,15 @@ LAD_ARGS = {
     "admm_eps_rel": 1e-4, "max_iters": 600, "epoch": 100,
     "refine_steps": 4, "matmul_precision": "highest",
 }
+# bench.py's lad_b4096 rescue stage: deeper ADMM, a tighter internal
+# target and a longer polish
+LAD_RESCUE_ARGS = dict(
+    LAD_ARGS, max_iters=2000, epoch=200, admm_eps_abs=1e-5,
+    admm_eps_rel=1e-5, refine_steps=8,
+)
+# a fast route that fails on purpose (the reference tests' BAD idea): one
+# epoch and no polish, so most lanes end MAX_ITERS
+LAD_FORCED_ARGS = dict(LAD_ARGS, max_iters=100, refine_steps=0)
 
 
 def ipm_args(args, **extra):
@@ -501,20 +510,61 @@ def sync():
         torch.cuda.synchronize()
 
 
+class Rescue:
+    """A rescue behind a path's fast route: solve_with_rescue's stages and
+    capacity. `forced` says the fast route fails on purpose, so the stage
+    must run on every call, and `on_stage` names the kernel every stage
+    that runs must launch. `grad_dtype` is the dtype of the CPU run that
+    the gradient phase holds rescued lanes against (f64 unless the
+    path's settings give its rescued lanes no f32 gradient near the f64
+    one, see ipm_rescue); the other lanes are always held against
+    f64."""
+
+    def __init__(self, args, capacity=16, forced=False, on_stage="K1",
+                 grad_dtype=torch.float64):
+        self.args, self.capacity = args, capacity
+        self.forced, self.on_stage = forced, on_stage
+        self.grad_dtype = grad_dtype
+
+
 class Path:
     """A layer path at full width: its layer, its parameters (and their
     names), its solver_args, the kernel it must launch (`wants`), the
     kernel it must not launch (`forbids`), the route it must take
     ("dense" or "shared"), the lanes held against the port's own f64 CPU
     run, and whether the gradient phase weighs x by a seeded vector
-    (sum(x) is constant on the simplex, so its gradient is zero)."""
+    (sum(x) is constant on the simplex, so its gradient is zero). A path
+    with `rescue` runs through solve_with_rescue; `min_solved` is the
+    solved fraction it must reach (None: a record), and
+    `agree_solved_only` holds only the lanes solved on both devices
+    against the f64 run. `unsolved_may_be_nonfinite` lets a lane that
+    did not solve carry a non-finite x (the Anderson route's f32 Gram
+    inverse can overflow there, in the reference too); solved lanes must
+    be finite on every path."""
 
     def __init__(self, name, layer, build, params, names, args, wants,
-                 forbids, route, agree_lanes, weighted=False):
+                 forbids, route, agree_lanes, weighted=False, B=1024,
+                 rescue=None, min_solved=0.99, agree_solved_only=False,
+                 unsolved_may_be_nonfinite=False):
         self.name, self.layer, self.build = name, layer, build
         self.params, self.names, self.args = params, names, args
         self.wants, self.forbids, self.route = wants, forbids, route
         self.agree_lanes, self.weighted = agree_lanes, weighted
+        self.B, self.rescue, self.min_solved = B, rescue, min_solved
+        self.agree_solved_only = agree_solved_only
+        self.unsolved_may_be_nonfinite = unsolved_may_be_nonfinite
+
+    def solve(self, ct, layer, params):
+        """(outs, status, iters) of one call of the path."""
+        if self.rescue is None:
+            return layer.solve_with_info(*params, solver_args=self.args)
+        return ct.solve_with_rescue(
+            layer, *params, solver_args=self.args,
+            rescue_args=self.rescue.args, capacity=self.rescue.capacity)
+
+
+def lad_params(r, B):
+    return [r.standard_normal((B, 3, 2)), r.standard_normal((B, 3))]
 
 
 PATHS = {
@@ -552,7 +602,55 @@ PATHS = {
                  ipm_args(LAD_ARGS, ipm_eps_abs=1e-6, ipm_max_iters=40,
                           cg_iters=200),
                  "K2", None, "dense", 8),
+    # bench.py's lad_b4096 row: the LAD fit at B=4096 with a deeper-ADMM
+    # rescue of capacity 16 (K1 on the fast stage and on the sub-batch)
+    "lad_rescue": Path("lad_rescue", "lad", lad_layer, lad_params, "Ab",
+                       LAD_ARGS, "K1", None, "dense", 16, B=4096,
+                       rescue=Rescue(LAD_RESCUE_ARGS),
+                       agree_solved_only=True),
+    # the same instances behind a fast route that fails on purpose, so
+    # the rescue stage runs on the card on every call: exactly
+    # min(failures, 16) lanes change, every other lane keeps the fast
+    # route's output and status bit for bit
+    "lad_rescue_forced": Path("lad_rescue_forced", "lad", lad_layer,
+                              lad_params, "Ab", LAD_FORCED_ARGS, "K1", None,
+                              "dense", 16, B=4096,
+                              rescue=Rescue(LAD_RESCUE_ARGS, forced=True),
+                              min_solved=None, agree_solved_only=True),
+    # bench.py's box_qp_ipm row: the IPM behind an ADMM rescue of
+    # capacity 16, on the ipm path's instances; K2 on the fast stage, K1
+    # whenever a lane failed (the f32 borderline lane of the IPM). On
+    # that lane 5 Schur-CG steps (BOX_QP_ARGS, as bench.py) leave the f32
+    # adjoint about 0.09 off the f64 gradient on both routes and both
+    # devices (the default count, 20 at n=50, matches to 1e-7), so its
+    # gradient is held against the same path run in f32 on the CPU; the
+    # other lanes against f64
+    "ipm_rescue": Path("ipm_rescue", "box_qp", box_qp_layer, box_qp_params,
+                       "vGh", dict(BOX_QP_ARGS, solve_method="ipm"), "K2",
+                       None, "dense", 16,
+                       rescue=Rescue(dict(BOX_QP_ARGS, solve_method="admm"),
+                                     grad_dtype=torch.float32),
+                       agree_solved_only=True),
+    # Anderson acceleration of the ADMM epoch on the LAD fit: the
+    # accelerated epoch is torch ops (the reference's Pallas kernel, like
+    # K1, computes only the plain scan), so K1 must stay at 0
+    "admm_aa": Path("admm_aa", "lad", lad_layer, lad_params, "Ab",
+                    dict(LAD_ARGS, accel_lookback=3), None, "K1", "dense", 16,
+                    min_solved=None, agree_solved_only=True,
+                    unsolved_may_be_nonfinite=True),
+    # the same instances without acceleration, for the record
+    "admm_aa_off": Path("admm_aa_off", "lad", lad_layer, lad_params, "Ab",
+                        LAD_ARGS, "K1", None, "dense", 16,
+                        agree_solved_only=True),
 }
+
+
+# the paths with a device profile and a gradient check (shared_off and
+# admm_aa_off are records of the same instances on another setting)
+PROFILED = ("admm", "ipm", "shared", "hsde", "lad_rescue",
+            "lad_rescue_forced", "ipm_rescue", "admm_aa")
+# the paths of the rescue and Anderson slice
+RESCUE_PATHS = ("lad_rescue", "lad_rescue_forced", "ipm_rescue", "admm_aa")
 
 
 def route_of(layer, args):
@@ -580,15 +678,100 @@ def check_launches(what, launches, wants, forbids):
              "on a route without it")
 
 
-def main_path_phase(ct, counters, path, calls=4, B=1024):
-    """A layer path at full width through solve_with_info. `counters`
-    maps each kernel's name to the module that counts its launches;
-    every count is set to 0 just before the calls and read just after."""
+class StageLog:
+    """Records each solve a rescue path makes through its layer: the fast
+    stage comes through solve_and_state and each rescue stage that runs
+    through solve_with_info (solve_with_rescue calls nothing else). A
+    record holds the solve's batch, every kernel's launches during it,
+    its statuses, iterations and outputs. It reads the launch counts and
+    changes none."""
+
+    def __init__(self, layer, counters):
+        self.records = []
+        for name in ("solve_and_state", "solve_with_info"):
+            setattr(layer, name,
+                    self._wrap(getattr(layer, name), name, counters))
+
+    def _wrap(self, fn, name, counters):
+        def logged(*args, **kw):
+            before = {k: mod.LAUNCHES for k, mod in counters.items()}
+            out = fn(*args, **kw)
+            self.records.append(dict(
+                stage="fast" if name == "solve_and_state" else "rescue",
+                B=int(out[-2].shape[0]), outs=out[0], status=out[-2],
+                iters=out[-1],
+                launches={k: mod.LAUNCHES - before[k]
+                          for k, mod in counters.items()}))
+            return out
+        return logged
+
+    def take(self):
+        records, self.records = self.records, []
+        return records
+
+
+def check_rescue(path, records, outs, status, iters):
+    """One call of a rescue path against its stage records: a stage runs
+    iff the fast route left a lane unsolved, on a capacity-sized
+    sub-batch, launching the stage's kernel; the fast stage launches the
+    path's kernel; exactly min(failures, capacity) lanes were rescued
+    (their iterations grew), all of them failed lanes; every other lane
+    keeps the fast route's outputs and status bit for bit. Returns the
+    call's record and the rescued lanes."""
+    fast, stages = records[0], records[1:]
+    B = fast["B"]
+    cap = min(path.rescue.capacity, B)
+    failed = fast["status"] != 0
+    n_failed = int(failed.sum())
+    rescued = iters != fast["iters"]
+    n_rescued = int(rescued.sum())
+    what = f"{path.name} rescue"
+    if fast["stage"] != "fast" or len(stages) != (1 if n_failed else 0):
+        fail(f"{what}: stages {[r['stage'] for r in records]} with "
+             f"{n_failed} failed lanes")
+    if path.rescue.forced and not n_failed:
+        fail(f"{what}: the forced fast route solved every lane")
+    on_card = DEV == "cuda"
+    if on_card and path.wants and fast["launches"][path.wants] == 0:
+        fail(f"{what}: the fast stage did not launch {path.wants}")
+    for r in stages:
+        if r["B"] != cap:
+            fail(f"{what}: a stage solved {r['B']} lanes, capacity {cap}")
+        if on_card and r["launches"][path.rescue.on_stage] == 0:
+            fail(f"{what}: the stage on the sub-batch did not launch "
+                 f"{path.rescue.on_stage}")
+    if n_rescued != min(n_failed, cap) or bool((rescued & ~failed).any()):
+        fail(f"{what}: {n_rescued} lanes changed, {n_failed} failed, "
+             f"capacity {cap}")
+    keep = ~rescued
+    if not (torch.equal(status[keep], fast["status"][keep])
+            and all(torch.equal(o[keep], f[keep])
+                    for o, f in zip(outs, fast["outs"]))):
+        fail(f"{what}: a lane outside the rescue differs from the fast "
+             "route")
+    rec = dict(solved_before=1.0 - n_failed / B,
+               solved_after=float((status == 0).float().mean()),
+               failed=n_failed, rescued=n_rescued,
+               rescued_solved=int((status[rescued] == 0).sum()),
+               fast_launches=fast["launches"],
+               stage_batches=[r["B"] for r in stages],
+               stage_launches=[r["launches"] for r in stages])
+    return rec, rescued
+
+
+def main_path_phase(ct, counters, path, calls=4, B=None):
+    """A layer path at full width (`B` overrides the path's batch in a
+    rehearsal) through solve_with_info, or solve_with_rescue on a rescue
+    path. `counters` maps each kernel's name to the module that counts
+    its launches; every count is set to 0 just before the calls and read
+    just after."""
     r = np.random.default_rng(0)
+    B = B or path.B
     layer = path.build(ct, DEV)
     route, form = route_of(layer, path.args)
     if route != path.route:
         fail(f"{path.name}: route {route}, expected {path.route}")
+    log = StageLog(layer, counters) if path.rescue else None
     # fresh inputs for every call, made up front and moved in bulk
     host = [path.params(r, B) for _ in range(calls + 1)]
     inputs = [to_dev(h, torch.float32) for h in host]
@@ -599,11 +782,11 @@ def main_path_phase(ct, counters, path, calls=4, B=1024):
     times = []
     solved = []
     iters_max = []
+    rescues = []
     first = None
     for i, params in enumerate(inputs):
         t0 = time.perf_counter()
-        (x,), status, iters = layer.solve_with_info(
-            *params, solver_args=path.args)
+        (x,), status, iters = path.solve(ct, layer, params)
         sync()
         dt = (time.perf_counter() - t0) * 1e3
         if i == 0:
@@ -612,6 +795,9 @@ def main_path_phase(ct, counters, path, calls=4, B=1024):
             times.append(dt)
         solved.append(float((status == 0).float().mean()))
         iters_max.append(int(iters.max()))
+        if log:
+            rescues.append(check_rescue(path, log.take(), (x,), status,
+                                        iters)[0])
     launches = {k: mod.LAUNCHES for k, mod in counters.items()}
     check_launches(f"{path.name} path", launches, path.wants, path.forbids)
     if route == "shared" and not layer._shared_solvers:
@@ -619,15 +805,24 @@ def main_path_phase(ct, counters, path, calls=4, B=1024):
 
     x, status, iters = first
     n = layer.prog.var_info[id(layer._outputs[0][1])].shape[0]
-    if tuple(x.shape) != (B, n) or not bool(torch.isfinite(x).all()):
+    finite = torch.isfinite(x).all(dim=1)
+    must = (status == 0 if path.unsolved_may_be_nonfinite
+            else torch.ones_like(finite))
+    if tuple(x.shape) != (B, n) or not bool(finite[must].all()):
         fail(f"{path.name} path: bad output {tuple(x.shape)}")
     # reference: the port's own f64 CPU run on the first lanes
     k = path.agree_lanes
     cpu_layer = path.build(ct, "cpu")
-    (x64,), st64, _ = cpu_layer.solve_with_info(
-        *to_dev([h[:k] for h in host[0]], torch.float64, "cpu"),
-        solver_args=path.args)
-    diff = float((x[:k].double().cpu() - x64).abs().max())
+    (x64,), st64, _ = path.solve(
+        ct, cpu_layer, to_dev([h[:k] for h in host[0]], torch.float64, "cpu"))
+    gap = (x[:k].double().cpu() - x64).abs().max(dim=1).values
+    both = (status[:k].cpu() == 0) & (st64 == 0)
+    if path.agree_solved_only:
+        if not bool(both.any()):
+            fail(f"{path.name} path: no lane of the first {k} solved on "
+                 "both devices")
+        gap = gap[both]
+    diff = float(gap.max())
     res = dict(
         path=path.name, layer=path.layer, route=route, ipm_form=form,
         n=n, m=layer.prog.m, B=B,
@@ -644,52 +839,59 @@ def main_path_phase(ct, counters, path, calls=4, B=1024):
         ms_per_call=times,
         solves_per_s=B / statistics.median(times) * 1e3,
         agree_lanes=k,
+        agree_solved_only=path.agree_solved_only,
+        lanes_solved_on_both=int(both.sum()),
         max_abs_diff_vs_f64_cpu=diff,
         f64_cpu_solved=float((st64 == 0).double().mean()),
+        nonfinite_lanes_first=int((~finite).sum()),
     )
+    if path.rescue:
+        res.update(rescue_args=path.rescue.args,
+                   capacity=path.rescue.capacity, rescue_per_call=rescues)
     say("main", json.dumps(res))
-    if min(solved) < 0.99:
-        fail(f"{path.name} path: solved fraction {min(solved)} < 0.99")
+    if path.min_solved is not None and min(solved) < path.min_solved:
+        fail(f"{path.name} path: solved fraction {min(solved)} < "
+             f"{path.min_solved}")
     # f32 at eps 1e-4 against f64: the solution agrees to ~1e-4, and
     # 2e-3 leaves room for the loosest certified lanes
     if diff > 2e-3:
         fail(f"{path.name} path: f32 cuda vs f64 cpu max abs diff "
              f"{diff:.3e}")
-    return res, launches[path.wants] if path.wants else 0
+    return res, launches
 
 
-def device_profile(layer, params, args):
-    """Device time by kernel name for one layer call."""
+def device_profile(ct, path, layer, params):
+    """Device time by kernel name for one call of a path."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) \
-            as prof:
-        layer.solve_with_info(*params, solver_args=args)
+    # device activity only, read from the trace's raw events: recording
+    # every host operator, or averaging through key_averages(), costs
+    # about 0.2 ms an event, many seconds on the Anderson path
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        path.solve(ct, layer, params)
         torch.cuda.synchronize()
-    rows = []
-    total = 0.0
-    count = 0
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue  # operator rows repeat their kernels' device time
-        dev_us = e.self_device_time_total
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-            total += dev_us
-            count += e.count
-    rows.sort(reverse=True)
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue  # runtime calls on the host
+        us, n = by_name.get(e.name(), (0.0, 0))
+        by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    rows = sorted(((us, name, n) for name, (us, n) in by_name.items()),
+                  reverse=True)
+    total = sum(us for us, _, _ in rows)
+    count = sum(n for _, _, n in rows)
     return total, count, rows[:8]
 
 
 def profile_phase(ct, path):
     layer = path.build(ct, DEV)
-    params = to_dev(path.params(np.random.default_rng(7), 1024),
+    params = to_dev(path.params(np.random.default_rng(7), path.B),
                     torch.float32)
-    layer.solve_with_info(*params, solver_args=path.args)  # warm-up
+    path.solve(ct, layer, params)  # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    total_us, count, top = device_profile(layer, params, path.args)
+    total_us, count, top = device_profile(ct, path, layer, params)
     wall_ms = (time.perf_counter() - t0) * 1e3
     say(f"profile ({path.name}): one call runs {count} device "
         f"kernels for {total_us / 1e3:.3f} ms of device time "
@@ -702,20 +904,36 @@ def profile_phase(ct, path):
         host_ms_profiler_on=wall_ms)))
 
 
-def gradient_phase(ct, counters, path, calls=3, B=1024):
+def gradient_lanes(rescued, k=8):
+    """The lanes held against f64: up to half of them rescued lanes, the
+    rest the first lanes."""
+    lanes = torch.nonzero(rescued).flatten().tolist()[:k // 2]
+    lanes += [i for i in range(k + len(lanes)) if i not in lanes]
+    return lanes[:k]
+
+
+def gradient_phase(ct, counters, path, calls=3, B=None):
     """Forward + backward through a layer path: finite gradients of
     sum(x) (of w'x with a seeded w on a weighted path) with respect to
-    every parameter, and the first 8 instances'
-    gradients against the port's f64 CPU gradients of the same
-    instances. At eps 1e-4 the f32 solution sits ~1e-7 from the f64 one
-    after the polish and the adjoint solve takes one refinement pass, so
-    gradients agree to ~1e-4 of their scale; 1e-2 is the limit. Each
-    parameter's error is taken over its own largest f64 gradient, or
-    over 1e-3 of the largest of all parameters where that is larger: an
-    LP's solution does not move with its cost vector, so that gradient
-    is zero up to rounding and has no scale of its own."""
+    every parameter, and 8 instances' gradients against the port's f64
+    CPU gradients of the same instances: the first 8 of the first call,
+    or on a rescue path, of the first call whose rescue solved a lane, up
+    to 4 such lanes and the first lanes after them (a path whose fast
+    route failed no lane, or whose rescue solved none, compares the
+    first call's first 8 and says so). Rescued lanes of a path whose
+    Rescue names another `grad_dtype` are held against the CPU run in
+    that dtype, and their f64 error is recorded beside.
+    At eps 1e-4 the f32 solution sits ~1e-7 from the f64 one after the
+    polish and the adjoint solve takes one refinement pass, so gradients
+    agree to ~1e-4 of their scale; 1e-2 is the limit. Each parameter's
+    error is taken over its own largest f64 gradient, or over 1e-3 of the
+    largest of all parameters where that is larger: an LP's solution does
+    not move with its cost vector, so that gradient is zero up to
+    rounding and has no scale of its own."""
     r = np.random.default_rng(11)
+    B = B or path.B
     layer = path.build(ct, DEV)
+    log = StageLog(layer, counters) if path.rescue else None
     host = [path.params(r, B) for _ in range(calls + 1)]
     n = layer.prog.var_info[id(layer._outputs[0][1])].shape[0]
     w = (np.random.default_rng(12).standard_normal((B, n)) if path.weighted
@@ -724,20 +942,23 @@ def gradient_phase(ct, counters, path, calls=3, B=1024):
     for mod in counters.values():
         mod.LAUNCHES = 0
     times = []
-    first = None
+    runs = []
     for i, h in enumerate(host):
         params = [t.requires_grad_() for t in to_dev(h, torch.float32)]
         sync()
         t0 = time.perf_counter()
-        (x,), status, _ = layer.solve_with_info(*params,
-                                                solver_args=path.args)
+        (x,), status, iters = path.solve(ct, layer, params)
         (x * w32).sum().backward()
         sync()
         dt = (time.perf_counter() - t0) * 1e3
-        if i == 0:
-            first = (params, status)
-        else:
+        if i:
             times.append(dt)
+        rescued = torch.zeros(B, dtype=torch.bool)
+        if log:
+            rescued = check_rescue(path, log.take(), (x,), status,
+                                   iters)[1].cpu()
+        # the lanes a rescue solved
+        runs.append((params, status, rescued & (status.cpu() == 0)))
         for p in params:
             if p.grad is None or tuple(p.grad.shape) != tuple(p.shape):
                 fail(f"gradient ({path.name}): a parameter got no "
@@ -748,37 +969,65 @@ def gradient_phase(ct, counters, path, calls=3, B=1024):
     check_launches(f"gradient ({path.name})", launches, path.wants,
                    path.forbids)
 
-    k = 8
-    params, status = first
+    call = next((i for i, run in enumerate(runs) if bool(run[2].any())), 0)
+    params, status, rescued = runs[call]
+    lanes = gradient_lanes(rescued)
     cpu_layer = path.build(ct, "cpu")
     ref = [t.requires_grad_() for t in
-           to_dev([a[:k] for a in host[0]], torch.float64, "cpu")]
-    (x64,), st64, _ = cpu_layer.solve_with_info(*ref, solver_args=path.args)
-    (x64 * to_dev([w[:k]], torch.float64, "cpu")[0]).sum().backward()
-    both = (status[:k].cpu() == 0) & (st64 == 0)
-    if not bool(both.any()):
-        fail(f"gradient ({path.name}): no lane solved on both devices")
-    overall = max(float(q.grad[both].abs().max()) for q in ref)
-    rel = []
-    for p, q in zip(params, ref):
-        g = p.grad[:k].double().cpu()[both]
-        g64 = q.grad[both]
-        rel.append(float((g - g64).abs().max()
-                         / max(float(g64.abs().max()), 1e-3 * overall)))
+           to_dev([a[lanes] for a in host[call]], torch.float64, "cpu")]
+    (x64,), st64, _ = path.solve(ct, cpu_layer, ref)
+    (x64 * to_dev([w[lanes]], torch.float64, "cpu")[0]).sum().backward()
+    both = (status[lanes].cpu() == 0) & (st64 == 0)
+    rescued_compared = int((rescued[lanes] & both).sum())
+    # the gradients each lane is held against
+    held = [q.grad.clone() for q in ref]
+    if path.rescue and path.rescue.grad_dtype != torch.float64:
+        same = [t.requires_grad_() for t in to_dev(
+            [a[lanes] for a in host[call]], path.rescue.grad_dtype, "cpu")]
+        (xs,), st_same, _ = path.solve(ct, cpu_layer, same)
+        (xs * to_dev([w[lanes]], path.rescue.grad_dtype, "cpu")[0]
+         ).sum().backward()
+        sub = rescued[lanes]
+        both &= ~sub | (st_same == 0)
+        for h_, t in zip(held, same):
+            h_[sub] = t.grad[sub].double()
+    rel, rel64 = [], []
+    if bool(both.any()):
+        overall = max(float(q.grad[both].abs().max()) for q in ref)
+        for p, q, h_ in zip(params, ref, held):
+            g = p.grad[lanes].double().cpu()[both]
+            scale = max(float(q.grad[both].abs().max()), 1e-3 * overall)
+            rel.append(float((g - h_[both]).abs().max() / scale))
+            rel64.append(float((g - q.grad[both]).abs().max() / scale))
     res = dict(path=path.name, layer=path.layer, B=B, dtype="float32",
                loss="w'x, w seeded" if path.weighted else "sum(x)",
                calls=len(host), fwd_bwd_median_ms=statistics.median(times),
                fwd_bwd_ms=times, launches=launches,
-               solved_fraction_first=float((status == 0).float().mean()),
-               lanes_compared=int(both.sum()),
-               grad_rel_err_vs_f64_cpu_first8=dict(zip(path.names, rel)),
+               compared_call=call,
+               solved_fraction=float((status == 0).float().mean()),
+               lanes=lanes, lanes_compared=int(both.sum()),
+               rescued_lanes_solved_per_call=[int(run[2].sum())
+                                              for run in runs],
+               rescued_lanes_compared=rescued_compared,
+               rescued_lanes_held_against=str(
+                   path.rescue.grad_dtype if path.rescue
+                   else torch.float64).replace("torch.", "") + " cpu",
+               grad_rel_err_checked=dict(zip(path.names, rel)),
+               grad_rel_err_vs_f64_cpu=dict(zip(path.names, rel64)),
                grad_abs_max=[float(p.grad.abs().max()) for p in params],
-               grad_abs_max_f64_first8=[float(q.grad.abs().max())
-                                        for q in ref])
+               grad_abs_max_f64=[float(q.grad.abs().max()) for q in ref])
     say("grad", json.dumps(res))
+    if not bool(both.any()):
+        fail(f"gradient ({path.name}): no lane solved on both devices")
+    if bool(rescued.any()) and not rescued_compared:
+        fail(f"gradient ({path.name}): no rescued lane among the lanes "
+             "held against f64")
+    if path.rescue and path.rescue.forced and not rescued_compared:
+        fail(f"gradient ({path.name}): the forced rescue compared no "
+             "rescued lane")
     if max(rel) > 1e-2:
         fail(f"gradient ({path.name}): relative error {max(rel):.3e} "
-             "against the f64 CPU gradient > 1e-2")
+             "against the CPU gradient > 1e-2")
     return res
 
 
@@ -897,25 +1146,37 @@ def main():
                 say(f"  {name}: {line.strip()}")
 
     # ---- 2. kernels against their plain versions
+    t0 = time.perf_counter()
     k1, k1_shapes = kernel_phase(cuda_admm)
     k2, k2_shapes = qr_kernel_phase(cuda_linalg)
+    say(f"phase kernels: {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. the paths at full width, each with its counts from 0
     counters = {"K1": cuda_admm, "K2": cuda_linalg}
-    _, k1_launches = main_path_phase(ct, counters, PATHS["admm"])
-    _, k2_launches = main_path_phase(ct, counters, PATHS["ipm"])
-    for name in ("shared", "shared_off", "hsde"):
-        main_path_phase(ct, counters, PATHS[name])
-    for name in ("admm", "ipm", "shared", "hsde"):
+    t0 = time.perf_counter()
+    launches = {name: main_path_phase(ct, counters, path)[1]
+                for name, path in PATHS.items()}
+    say(f"phase main: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    for name in PROFILED:
         profile_phase(ct, PATHS[name])
+    say(f"phase profile: {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. gradients through the layer
-    for name in ("admm", "ipm", "shared", "hsde"):
+    t0 = time.perf_counter()
+    for name in PROFILED:
         gradient_phase(ct, counters, PATHS[name])
+    say(f"phase grad: {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. small layers
+    t0 = time.perf_counter()
     small_layers_phase(ct, counters)
+    say(f"phase small: {time.perf_counter() - t0:.1f} s")
 
+    # each kernel's launches on the main path of its slice and on every
+    # path this slice added
+    k1_launches = sum(launches[p]["K1"] for p in ("admm",) + RESCUE_PATHS)
+    k2_launches = sum(launches[p]["K2"] for p in ("ipm",) + RESCUE_PATHS)
     kernels = [
         kernel_record(
             "admm_polyhedral_epoch",

@@ -1,3 +1,4 @@
 from .cvxpylayer import CvxpyLayer, SolverError, WarmStart
+from .rescue import solve_with_rescue
 
-__all__ = ["CvxpyLayer", "SolverError", "WarmStart"]
+__all__ = ["CvxpyLayer", "SolverError", "WarmStart", "solve_with_rescue"]

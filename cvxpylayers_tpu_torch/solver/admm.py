@@ -14,7 +14,9 @@ array carries the batch axis first (B instances of one structure):
     (batched Cholesky, a library call as in the reference);
   * `epoch` inner steps per factor: for polyhedral cones, the fused
     kernel K1 (solver/cuda_admm.py) on a CUDA tensor, its plain version
-    on a CPU tensor;
+    on a CPU tensor; with `accel_lookback > 0`, type-II Anderson
+    acceleration of the step in batched torch ops instead (the
+    reference's Pallas kernel, like K1, computes only the plain scan);
   * residuals with the duality gap, Banjac-style infeasibility
     certificates and adaptive rho at every epoch boundary.
 
@@ -34,6 +36,7 @@ import torch
 from ..cones.dims import ConeDims
 from ..cones.projections import make_cone_projector, require_polyhedral
 from ..utils.precision import full_f32
+from .batched_linalg import spd_inv_via_chol
 from .cuda_admm import polyhedral_inner_epoch
 from .settings import (
     DUAL_INFEASIBLE,
@@ -149,6 +152,48 @@ def _ruiz_equilibrate(P, A, q, b, group_ids, n_groups, iters: int):
     return P, A, q, b, D, E, c
 
 
+def anderson_mix(S, Yb, v, vT, v_prev, g_prev, gn_prev, k: int):
+    """One type-II Anderson step over a batch, the reference's `step`
+    after the map T: v and vT = T(v) are (B, d), the history S and Yb
+    (B, L, d) hold the last L differences of v and of g = vT - v, v_prev
+    and g_prev are the previous step's v and g, gn_prev (B,) its |g|^2
+    (inf after a restart) and k the step's index in the epoch. Returns
+    (v_next, S, Yb, gn) for the next step.
+
+    Per lane: a residual that grew restarts the history and takes the
+    plain step; otherwise the last differences enter slot (k-1) mod L
+    (shared by all lanes), the mixing weights gamma solve the Gram system
+    regularized by 1e-8 trace/L + 1e-30 through the masked SPD inverse,
+    and weights with |gamma|^2 > 100 (a near-singular history) fall back
+    to the plain step too."""
+    L = S.shape[1]
+    g = vT - v
+    gn = bdot(g, g)
+    # history restart on residual growth (safeguard)
+    grew = gn > gn_prev
+    S = torch.where(grew[:, None, None], 0.0, S)
+    Yb = torch.where(grew[:, None, None], 0.0, Yb)
+    if k > 0:
+        # record the (v, g) differences of the last step
+        ptr = (k - 1) % L
+        hist = ~grew[:, None]
+        S[:, ptr] = torch.where(hist, v - v_prev, S[:, ptr])
+        Yb[:, ptr] = torch.where(hist, g - g_prev, Yb[:, ptr])
+    # zero history rows are inert: reg * gamma_i = 0
+    Gram = torch.bmm(Yb, Yb.mT)
+    trace = torch.diagonal(Gram, dim1=-2, dim2=-1).sum(-1)
+    reg = 1e-8 * (trace / L) + 1e-30
+    eye = torch.eye(L, dtype=Gram.dtype, device=Gram.device)
+    Ginv = spd_inv_via_chol(Gram + reg[:, None, None] * eye)
+    gamma = bmv(Ginv, bmv(Yb, g))
+    # a huge mixing vector means a near-singular history: the
+    # extrapolation is unreliable, take the plain step
+    wild = bdot(gamma, gamma) > 100.0
+    v_acc = vT - bmv_t(S + Yb, gamma)
+    v_next = torch.where((grew | wild)[:, None], vT, v_acc)
+    return v_next, S, Yb, torch.where(grew, torch.inf, gn)
+
+
 def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                      masked_factor: bool = False):
     """Build solve(P, q, A, b, x0, y0, s0) -> SolveResult for a fixed
@@ -160,11 +205,6 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
     del masked_factor
     require_polyhedral(dims, "the ADMM solver")
     st = settings
-    if st.accel_lookback > 0:
-        raise NotImplementedError(
-            "Anderson acceleration (accel_lookback > 0) arrives with a "
-            "later port slice"
-        )
     m = dims.total
     proj_K = make_cone_projector(dims)
     group_ids, n_groups = _cone_row_groups(dims)
@@ -247,10 +287,55 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                 sigma=st.sigma, alpha=st.alpha,
             )
 
+        def proj_C(u):
+            return bs - proj_K(bs - u)
+
+        def run_epoch_aa(x_, z_, y_, minv, rho_):
+            """Type-II Anderson acceleration on the pre-projection state
+            v = [x; w] (w = z + y/rho): z and y are always re-derived from
+            w by projection, so y stays in K*. The history S, Yb (B, L,
+            n+m) is epoch-local (rho changes the map at epoch
+            boundaries); its write slot (k-1) mod L is shared by all
+            lanes, since k counts the steps of the epoch. The restart,
+            the Gram solve and the fallback to the plain step are per
+            lane, as in the reference's vmapped scan (anderson_mix)."""
+            L = st.accel_lookback
+            B = x_.shape[0]
+
+            def T(xv, wv):
+                zv = proj_C(wv)
+                yv = rho_ * (wv - zv)
+                rhs = st.sigma * xv - qs + bmv_t(As, rho_ * zv - yv)
+                x_t = bmv(minv, rhs)
+                z_t = bmv(As, x_t)
+                x_n = st.alpha * x_t + (1 - st.alpha) * xv
+                w_n = st.alpha * z_t + (1 - st.alpha) * zv + yv / rho_
+                return x_n, w_n
+
+            xv, wv = x_, z_ + y_ / rho_
+            S = x_.new_zeros(B, L, n + m)
+            Yb = x_.new_zeros(B, L, n + m)
+            v_prev = x_.new_zeros(B, n + m)
+            g_prev = x_.new_zeros(B, n + m)
+            gn_prev = x_.new_full((B,), torch.inf)
+            with full_f32():
+                for k in range(st.epoch):
+                    x_t, w_t = T(xv, wv)
+                    v = torch.cat([xv, wv], dim=1)
+                    vT = torch.cat([x_t, w_t], dim=1)
+                    v_next, S, Yb, gn_prev = anderson_mix(
+                        S, Yb, v, vT, v_prev, g_prev, gn_prev, k)
+                    v_prev, g_prev = v, vT - v
+                    xv, wv = v_next[:, :n], v_next[:, n:]
+                ze = proj_C(wv)
+                return xv, ze, rho_ * (wv - ze)
+
+        epoch_step = run_epoch_aa if st.accel_lookback > 0 else run_epoch
+
         def epoch_body(x_, z_, y_, rho_, it):
             minv = factor(Ps, As, rho_)
             x_prev, y_prev = x_, y_
-            x_, z_, y_ = run_epoch(x_, z_, y_, minv, rho_)
+            x_, z_, y_ = epoch_step(x_, z_, y_, minv, rho_)
             it = it + st.epoch
 
             r_p, p_sc, r_d, d_sc, gap, g_sc = residuals(x_, z_, y_)

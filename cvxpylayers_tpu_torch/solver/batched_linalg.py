@@ -3,9 +3,15 @@
 Counterpart of cvxpylayers_tpu/solver/batched_linalg.py, as far as the
 port needs it: the Householder R factor that the interior-point solver's
 f32 condensed KKT factor takes (solver/ipm.py), and the size gate that
-goes with it. `house_qr_r_plain` is the plain version of kernel K2
-(solver/cuda_linalg.py); the Cholesky factors and triangular solves the
-reference hand-rolls for its backend are `torch.linalg` calls here.
+goes with it; and the masked Cholesky, triangular inverse and SPD
+inverse that Anderson acceleration's small (L, L) Gram solve takes
+(solver/admm.py). `house_qr_r_plain` is the plain version of kernel K2
+(solver/cuda_linalg.py). The masked SPD inverse is the one piece of the
+reference's hand-rolled factorizations that a path needs: its pivot is
+clamped, sqrt(max(d, 1e-30)), so an all-zero history gives a finite
+inverse where `torch.linalg.cholesky_ex` would report a failure. The
+other Cholesky factors and triangular solves the reference hand-rolls
+for its backend are `torch.linalg` calls here.
 
 Convention. The reference holds two Householder forms that agree to
 rounding except on a degenerate column: `batched_linalg.house_qr_r`
@@ -70,3 +76,53 @@ def house_qr_r_plain(M: torch.Tensor) -> torch.Tensor:
             S[:, j, j] = torch.where(degen, xj, alpha)
             S[:, j + 1:, j] = 0.0
     return torch.triu(S[:, :n, :n])
+
+
+def chol_masked(A: torch.Tensor) -> torch.Tensor:
+    """Right-looking Cholesky of a batch of SPD (L, L) matrices -> lower
+    factors, (B, L, L) -> (B, L, L). The reference's recurrence, one
+    masked rank-1 update a column: the pivot is sqrt(max(d, 1e-30)), so a
+    zero or negative pivot gives a zero column, never NaN.
+
+    The update A - u u' is rounded once, as the reference's compiler
+    fuses it into one multiply-add: an f32 factor forms it in f64 (the
+    product of two f32 numbers is exact there). A near-singular Gram's
+    last pivot is a cancellation at the rounding floor, and a second
+    rounding turns it negative far more often (the clamp then gives a
+    ~1e30 inverse and, in f32, overflow)."""
+    n = A.shape[-1]
+    idx = torch.arange(n, device=A.device)
+    wide = torch.float64
+    A = A.clone()
+    for j in range(n):
+        d = torch.sqrt(torch.clamp_min(A[:, j, j], _TINY))
+        col = torch.where(idx >= j, A[:, :, j] / d[:, None], 0.0)
+        u = torch.where(idx > j, col, 0.0).to(wide)
+        A = (A.to(wide) - u[:, :, None] * u[:, None, :]).to(col.dtype)
+        A[:, :, j] = col
+    return torch.tril(A)
+
+
+def tri_inv_masked(L: torch.Tensor) -> torch.Tensor:
+    """Explicit inverses of a batch of lower-triangular (L, L) matrices by
+    masked forward substitution on the identity, row by row:
+    X[j, :] = (e_j - L[j, :j] X[:j, :]) / L[j, j], with a diagonal below
+    1e-30 in magnitude read as 1e-30."""
+    n = L.shape[-1]
+    idx = torch.arange(n, device=L.device)
+    d = torch.diagonal(L, dim1=-2, dim2=-1)
+    dinv = 1.0 / torch.where(d.abs() > _TINY, d, _TINY)
+    X = torch.zeros_like(L)
+    for j in range(n):
+        lrow = torch.where(idx < j, L[:, j, :], 0.0)
+        lx = torch.bmm(lrow.unsqueeze(1), X).squeeze(1)
+        X[:, j, :] = ((idx == j).to(L.dtype) - lx) * dinv[:, j:j + 1]
+    return X
+
+
+def spd_inv_via_chol(A: torch.Tensor) -> torch.Tensor:
+    """Inverses of a batch of SPD (L, L) matrices: A^{-1} = Li' Li with
+    Li the inverse of the masked Cholesky factor."""
+    with full_f32():
+        Li = tri_inv_masked(chol_masked(A))
+        return torch.bmm(Li.mT, Li)

@@ -42,6 +42,9 @@ from cvxpylayers_tpu_torch.solver.settings import (
 )
 from cvxpylayers_tpu_torch.solver.settings import SolverSettings as TSettings
 
+# tiny tensors: more threads only contend with the other test workers
+torch.set_num_threads(1)
+
 _ATOL = 1e-8
 _GRAD_ATOL = 1e-6
 _N, _B = 6, 4
