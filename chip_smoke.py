@@ -83,6 +83,14 @@ LAD_RESCUE_ARGS = dict(
     LAD_ARGS, max_iters=2000, epoch=200, admm_eps_abs=1e-5,
     admm_eps_rel=1e-5, refine_steps=8,
 )
+# bench.py's box_qp_ipm rescue stage, ADMM, with the adjoint's Schur-CG
+# steps at their default (20 at n=50) instead of the row's 5: on the f32
+# borderline lane that the stage rescues, 5 steps leave the f32 gradient
+# 6-13 % off the f64 one, in the reference as in the port
+# (tests/test_torch_port_rescue.py), and 20 reach it
+IPM_RESCUE_ARGS = {k: v for k, v in BOX_QP_ARGS.items()
+                   if k != "schur_iters"}
+IPM_RESCUE_ARGS["solve_method"] = "admm"
 # a fast route that fails on purpose (the reference tests' BAD idea): one
 # epoch and no polish, so most lanes end MAX_ITERS
 LAD_FORCED_ARGS = dict(LAD_ARGS, max_iters=100, refine_steps=0)
@@ -510,21 +518,9 @@ def sync():
         torch.cuda.synchronize()
 
 
-class Rescue:
-    """A rescue behind a path's fast route: solve_with_rescue's stages and
-    capacity. `forced` says the fast route fails on purpose, so the stage
-    must run on every call, and `on_stage` names the kernel every stage
-    that runs must launch. `grad_dtype` is the dtype of the CPU run that
-    the gradient phase holds rescued lanes against (f64 unless the
-    path's settings give its rescued lanes no f32 gradient near the f64
-    one, see ipm_rescue); the other lanes are always held against
-    f64."""
-
-    def __init__(self, args, capacity=16, forced=False, on_stage="K1",
-                 grad_dtype=torch.float64):
-        self.args, self.capacity = args, capacity
-        self.forced, self.on_stage = forced, on_stage
-        self.grad_dtype = grad_dtype
+# solve_with_rescue's capacity on every rescue path, as bench.py's rows;
+# every rescue stage is ADMM and launches K1
+RESCUE_CAPACITY = 16
 
 
 class Path:
@@ -534,25 +530,26 @@ class Path:
     ("dense" or "shared"), the lanes held against the port's own f64 CPU
     run, and whether the gradient phase weighs x by a seeded vector
     (sum(x) is constant on the simplex, so its gradient is zero). A path
-    with `rescue` runs through solve_with_rescue; `min_solved` is the
-    solved fraction it must reach (None: a record), and
-    `agree_solved_only` holds only the lanes solved on both devices
-    against the f64 run. `unsolved_may_be_nonfinite` lets a lane that
-    did not solve carry a non-finite x (the Anderson route's f32 Gram
-    inverse can overflow there, in the reference too); solved lanes must
-    be finite on every path."""
+    with `rescue` (the stage's solver_args) runs through
+    solve_with_rescue; `forced` says its fast route fails on purpose, so
+    the stage must run on every call. `min_solved` is the solved
+    fraction a path must reach (None: a record). `agree_solved_only`
+    holds only the lanes solved on both devices against the f64 run, and
+    lets a lane that did not solve carry a non-finite x (the Anderson
+    route's f32 Gram inverse can overflow there, in the reference too);
+    solved lanes must be finite on every path."""
 
     def __init__(self, name, layer, build, params, names, args, wants,
                  forbids, route, agree_lanes, weighted=False, B=1024,
-                 rescue=None, min_solved=0.99, agree_solved_only=False,
-                 unsolved_may_be_nonfinite=False):
+                 rescue=None, forced=False, min_solved=0.99,
+                 agree_solved_only=False):
         self.name, self.layer, self.build = name, layer, build
         self.params, self.names, self.args = params, names, args
         self.wants, self.forbids, self.route = wants, forbids, route
         self.agree_lanes, self.weighted = agree_lanes, weighted
-        self.B, self.rescue, self.min_solved = B, rescue, min_solved
+        self.B, self.rescue, self.forced = B, rescue, forced
+        self.min_solved = min_solved
         self.agree_solved_only = agree_solved_only
-        self.unsolved_may_be_nonfinite = unsolved_may_be_nonfinite
 
     def solve(self, ct, layer, params):
         """(outs, status, iters) of one call of the path."""
@@ -560,7 +557,7 @@ class Path:
             return layer.solve_with_info(*params, solver_args=self.args)
         return ct.solve_with_rescue(
             layer, *params, solver_args=self.args,
-            rescue_args=self.rescue.args, capacity=self.rescue.capacity)
+            rescue_args=self.rescue, capacity=RESCUE_CAPACITY)
 
 
 def lad_params(r, B):
@@ -606,8 +603,7 @@ PATHS = {
     # rescue of capacity 16 (K1 on the fast stage and on the sub-batch)
     "lad_rescue": Path("lad_rescue", "lad", lad_layer, lad_params, "Ab",
                        LAD_ARGS, "K1", None, "dense", 16, B=4096,
-                       rescue=Rescue(LAD_RESCUE_ARGS),
-                       agree_solved_only=True),
+                       rescue=LAD_RESCUE_ARGS, agree_solved_only=True),
     # the same instances behind a fast route that fails on purpose, so
     # the rescue stage runs on the card on every call: exactly
     # min(failures, 16) lanes change, every other lane keeps the fast
@@ -615,29 +611,21 @@ PATHS = {
     "lad_rescue_forced": Path("lad_rescue_forced", "lad", lad_layer,
                               lad_params, "Ab", LAD_FORCED_ARGS, "K1", None,
                               "dense", 16, B=4096,
-                              rescue=Rescue(LAD_RESCUE_ARGS, forced=True),
+                              rescue=LAD_RESCUE_ARGS, forced=True,
                               min_solved=None, agree_solved_only=True),
     # bench.py's box_qp_ipm row: the IPM behind an ADMM rescue of
     # capacity 16, on the ipm path's instances; K2 on the fast stage, K1
-    # whenever a lane failed (the f32 borderline lane of the IPM). On
-    # that lane 5 Schur-CG steps (BOX_QP_ARGS, as bench.py) leave the f32
-    # adjoint about 0.09 off the f64 gradient on both routes and both
-    # devices (the default count, 20 at n=50, matches to 1e-7), so its
-    # gradient is held against the same path run in f32 on the CPU; the
-    # other lanes against f64
+    # whenever a lane failed (the f32 borderline lane of the IPM)
     "ipm_rescue": Path("ipm_rescue", "box_qp", box_qp_layer, box_qp_params,
                        "vGh", dict(BOX_QP_ARGS, solve_method="ipm"), "K2",
-                       None, "dense", 16,
-                       rescue=Rescue(dict(BOX_QP_ARGS, solve_method="admm"),
-                                     grad_dtype=torch.float32),
+                       None, "dense", 16, rescue=IPM_RESCUE_ARGS,
                        agree_solved_only=True),
     # Anderson acceleration of the ADMM epoch on the LAD fit: the
     # accelerated epoch is torch ops (the reference's Pallas kernel, like
     # K1, computes only the plain scan), so K1 must stay at 0
     "admm_aa": Path("admm_aa", "lad", lad_layer, lad_params, "Ab",
                     dict(LAD_ARGS, accel_lookback=3), None, "K1", "dense", 16,
-                    min_solved=None, agree_solved_only=True,
-                    unsolved_may_be_nonfinite=True),
+                    min_solved=None, agree_solved_only=True),
     # the same instances without acceleration, for the record
     "admm_aa_off": Path("admm_aa_off", "lad", lad_layer, lad_params, "Ab",
                         LAD_ARGS, "K1", None, "dense", 16,
@@ -720,7 +708,7 @@ def check_rescue(path, records, outs, status, iters):
     call's record and the rescued lanes."""
     fast, stages = records[0], records[1:]
     B = fast["B"]
-    cap = min(path.rescue.capacity, B)
+    cap = min(RESCUE_CAPACITY, B)
     failed = fast["status"] != 0
     n_failed = int(failed.sum())
     rescued = iters != fast["iters"]
@@ -729,7 +717,7 @@ def check_rescue(path, records, outs, status, iters):
     if fast["stage"] != "fast" or len(stages) != (1 if n_failed else 0):
         fail(f"{what}: stages {[r['stage'] for r in records]} with "
              f"{n_failed} failed lanes")
-    if path.rescue.forced and not n_failed:
+    if path.forced and not n_failed:
         fail(f"{what}: the forced fast route solved every lane")
     on_card = DEV == "cuda"
     if on_card and path.wants and fast["launches"][path.wants] == 0:
@@ -737,9 +725,8 @@ def check_rescue(path, records, outs, status, iters):
     for r in stages:
         if r["B"] != cap:
             fail(f"{what}: a stage solved {r['B']} lanes, capacity {cap}")
-        if on_card and r["launches"][path.rescue.on_stage] == 0:
-            fail(f"{what}: the stage on the sub-batch did not launch "
-                 f"{path.rescue.on_stage}")
+        if on_card and r["launches"]["K1"] == 0:
+            fail(f"{what}: the stage on the sub-batch did not launch K1")
     if n_rescued != min(n_failed, cap) or bool((rescued & ~failed).any()):
         fail(f"{what}: {n_rescued} lanes changed, {n_failed} failed, "
              f"capacity {cap}")
@@ -806,7 +793,7 @@ def main_path_phase(ct, counters, path, calls=4, B=None):
     x, status, iters = first
     n = layer.prog.var_info[id(layer._outputs[0][1])].shape[0]
     finite = torch.isfinite(x).all(dim=1)
-    must = (status == 0 if path.unsolved_may_be_nonfinite
+    must = (status == 0 if path.agree_solved_only
             else torch.ones_like(finite))
     if tuple(x.shape) != (B, n) or not bool(finite[must].all()):
         fail(f"{path.name} path: bad output {tuple(x.shape)}")
@@ -846,8 +833,8 @@ def main_path_phase(ct, counters, path, calls=4, B=None):
         nonfinite_lanes_first=int((~finite).sum()),
     )
     if path.rescue:
-        res.update(rescue_args=path.rescue.args,
-                   capacity=path.rescue.capacity, rescue_per_call=rescues)
+        res.update(rescue_args=path.rescue, capacity=RESCUE_CAPACITY,
+                   rescue_per_call=rescues)
     say("main", json.dumps(res))
     if path.min_solved is not None and min(solved) < path.min_solved:
         fail(f"{path.name} path: solved fraction {min(solved)} < "
@@ -905,8 +892,8 @@ def profile_phase(ct, path):
 
 
 def gradient_lanes(rescued, k=8):
-    """The lanes held against f64: up to half of them rescued lanes, the
-    rest the first lanes."""
+    """The lanes held against f64: the rescued lanes first (up to half of
+    them), then the first lanes."""
     lanes = torch.nonzero(rescued).flatten().tolist()[:k // 2]
     lanes += [i for i in range(k + len(lanes)) if i not in lanes]
     return lanes[:k]
@@ -920,9 +907,7 @@ def gradient_phase(ct, counters, path, calls=3, B=None):
     or on a rescue path, of the first call whose rescue solved a lane, up
     to 4 such lanes and the first lanes after them (a path whose fast
     route failed no lane, or whose rescue solved none, compares the
-    first call's first 8 and says so). Rescued lanes of a path whose
-    Rescue names another `grad_dtype` are held against the CPU run in
-    that dtype, and their f64 error is recorded beside.
+    first call's first 8 and says so).
     At eps 1e-4 the f32 solution sits ~1e-7 from the f64 one after the
     polish and the adjoint solve takes one refinement pass, so gradients
     agree to ~1e-4 of their scale; 1e-2 is the limit. Each parameter's
@@ -979,26 +964,13 @@ def gradient_phase(ct, counters, path, calls=3, B=None):
     (x64 * to_dev([w[lanes]], torch.float64, "cpu")[0]).sum().backward()
     both = (status[lanes].cpu() == 0) & (st64 == 0)
     rescued_compared = int((rescued[lanes] & both).sum())
-    # the gradients each lane is held against
-    held = [q.grad.clone() for q in ref]
-    if path.rescue and path.rescue.grad_dtype != torch.float64:
-        same = [t.requires_grad_() for t in to_dev(
-            [a[lanes] for a in host[call]], path.rescue.grad_dtype, "cpu")]
-        (xs,), st_same, _ = path.solve(ct, cpu_layer, same)
-        (xs * to_dev([w[lanes]], path.rescue.grad_dtype, "cpu")[0]
-         ).sum().backward()
-        sub = rescued[lanes]
-        both &= ~sub | (st_same == 0)
-        for h_, t in zip(held, same):
-            h_[sub] = t.grad[sub].double()
-    rel, rel64 = [], []
+    rel = []
     if bool(both.any()):
         overall = max(float(q.grad[both].abs().max()) for q in ref)
-        for p, q, h_ in zip(params, ref, held):
+        for p, q in zip(params, ref):
             g = p.grad[lanes].double().cpu()[both]
             scale = max(float(q.grad[both].abs().max()), 1e-3 * overall)
-            rel.append(float((g - h_[both]).abs().max() / scale))
-            rel64.append(float((g - q.grad[both]).abs().max() / scale))
+            rel.append(float((g - q.grad[both]).abs().max() / scale))
     res = dict(path=path.name, layer=path.layer, B=B, dtype="float32",
                loss="w'x, w seeded" if path.weighted else "sum(x)",
                calls=len(host), fwd_bwd_median_ms=statistics.median(times),
@@ -1009,11 +981,7 @@ def gradient_phase(ct, counters, path, calls=3, B=None):
                rescued_lanes_solved_per_call=[int(run[2].sum())
                                               for run in runs],
                rescued_lanes_compared=rescued_compared,
-               rescued_lanes_held_against=str(
-                   path.rescue.grad_dtype if path.rescue
-                   else torch.float64).replace("torch.", "") + " cpu",
-               grad_rel_err_checked=dict(zip(path.names, rel)),
-               grad_rel_err_vs_f64_cpu=dict(zip(path.names, rel64)),
+               grad_rel_err_vs_f64_cpu=dict(zip(path.names, rel)),
                grad_abs_max=[float(p.grad.abs().max()) for p in params],
                grad_abs_max_f64=[float(q.grad.abs().max()) for q in ref])
     say("grad", json.dumps(res))
@@ -1022,12 +990,12 @@ def gradient_phase(ct, counters, path, calls=3, B=None):
     if bool(rescued.any()) and not rescued_compared:
         fail(f"gradient ({path.name}): no rescued lane among the lanes "
              "held against f64")
-    if path.rescue and path.rescue.forced and not rescued_compared:
+    if path.forced and not rescued_compared:
         fail(f"gradient ({path.name}): the forced rescue compared no "
              "rescued lane")
     if max(rel) > 1e-2:
         fail(f"gradient ({path.name}): relative error {max(rel):.3e} "
-             "against the CPU gradient > 1e-2")
+             "against the f64 CPU gradient > 1e-2")
     return res
 
 

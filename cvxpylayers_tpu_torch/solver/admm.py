@@ -152,6 +152,22 @@ def _ruiz_equilibrate(P, A, q, b, group_ids, n_groups, iters: int):
     return P, A, q, b, D, E, c
 
 
+def relax(alpha: float, new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    """The over-relaxation alpha * new + (1 - alpha) * old, with the first
+    product and the sum rounded once, as the reference's compiler fuses
+    them into a multiply-add: an f32 relaxation forms them in f64 (the
+    product of two f32 numbers is exact there). At a fixed point of the
+    map (new == old) this returns x itself, where two roundings of
+    1.6 x - 0.6 x miss it by an ulp about a third of the time: the
+    Anderson history would then fill with ulp noise instead of zeros,
+    and its Gram (~1e-13) has a regularized inverse that overflows in
+    f32, which ends the lane non-finite."""
+    if new.dtype != torch.float32:
+        return alpha * new + (1 - alpha) * old
+    a32 = float(np.float32(alpha))
+    return (a32 * new.double() + ((1 - alpha) * old).double()).float()
+
+
 def anderson_mix(S, Yb, v, vT, v_prev, g_prev, gn_prev, k: int):
     """One type-II Anderson step over a batch, the reference's `step`
     after the map T: v and vT = T(v) are (B, d), the history S and Yb
@@ -308,9 +324,8 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                 rhs = st.sigma * xv - qs + bmv_t(As, rho_ * zv - yv)
                 x_t = bmv(minv, rhs)
                 z_t = bmv(As, x_t)
-                x_n = st.alpha * x_t + (1 - st.alpha) * xv
-                w_n = st.alpha * z_t + (1 - st.alpha) * zv + yv / rho_
-                return x_n, w_n
+                return (relax(st.alpha, x_t, xv),
+                        relax(st.alpha, z_t, zv) + yv / rho_)
 
             xv, wv = x_, z_ + y_ / rho_
             S = x_.new_zeros(B, L, n + m)
