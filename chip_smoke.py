@@ -19,24 +19,35 @@ Phases (any failure exits non-zero before the result line):
              computes the same function where there is one, and the
              card's bound
   3. main    each layer path of PATHS at full width (B=1024, f32)
-             through CvxpyLayer(...).solve_with_info(*params), its kernel
-             launches counted from 0 just before it and read just after:
-             the OptNet box-QP projection layer (n=50, G 20x50) with
+             through CvxpyLayer(...).solve_with_info(*params), or
+             solve_with_rescue on a rescue path, its kernel launches
+             counted from 0 just before it and read just after: the
+             OptNet box-QP projection layer (n=50, G 20x50) with
              solve_method="admm" (kernel K1) and "ipm" (kernel K2); the
              simplex projection at n=50 on the shared constant-P/A route
              (no kernel: K1 must stay at 0) and, for the record, on the
              dense route; a box-constrained LP through the self-dual
-             embedding (K2 once per iteration). Solved fraction, route,
-             iterations, ms per call with fresh inputs, agreement of the
-             first lanes with the port's own f64 CPU run; a device
-             profile of one call of each but the dense simplex
-  4. grad    the same paths with requires_grad on the parameters and a
-             backward pass: finite gradients, agreement of the first 8
-             instances with the port's f64 CPU gradients, ms per
-             forward+backward
+             embedding (K2 once per iteration); the rescue and Anderson
+             paths; and the general cones, where K1 and K2 must stay at
+             0: bench.py's Markowitz SOCP fast route (B=512, dense
+             route), its entropy softmax with the equality dual behind
+             the two-stage rescue ladder (B=512, shared route) and its
+             16x16 spectahedron SDP (B=256, shared route, Newton-Schulz
+             PSD in the inner loop). Solved fraction, route, iterations,
+             exact-eigh calls, ms per call with fresh inputs, agreement of
+             the first lanes' outputs with the port's own f64 CPU run; a
+             device profile of one call of each profiled path
+  4. grad    the profiled paths with requires_grad on the parameters and
+             a backward pass: finite gradients, agreement of 8 instances
+             with the port's f64 CPU gradients, ms per forward+backward
   5. small   the simplex-projection and LAD layers at B=256 by every
              route: shared and dense ADMM, the IPM's primal-dual form and
-             its self-dual embedding
+             its self-dual embedding; a power-cone projection layer, an
+             SOC layer whose polish takes the PCG and the spectral KKT
+             modes, and the softmax ladder behind a fast route that fails
+             on purpose, so both of its stages run on the card; and
+             the same outputs with TF32 matmuls allowed globally as
+             without (the package pins its own products)
 
 Imports nothing of JAX or of cvxpylayers_tpu. The second-to-last lines
 are the card's name and power limit and the per-kernel JSON record; the
@@ -94,6 +105,33 @@ IPM_RESCUE_ARGS["solve_method"] = "admm"
 # a fast route that fails on purpose (the reference tests' BAD idea): one
 # epoch and no polish, so most lanes end MAX_ITERS
 LAD_FORCED_ARGS = dict(LAD_ARGS, max_iters=100, refine_steps=0)
+
+
+# bench.py's _tuned_args: ADMM to ~1e-3, then the Newton polish to eps
+TUNED_ARGS = {
+    "eps_abs": 1e-4, "eps_rel": 1e-4, "admm_eps_abs": 1e-3,
+    "admm_eps_rel": 1e-3, "max_iters": 50, "epoch": 50, "refine_steps": 4,
+}
+# bench.py's markowitz_socp fast route; its interior-point rescue waits
+# for the IPM's cone blocks. The f32 KKT solves there (n + m = 114, the
+# dense-normal window) run CG on the normal equations: at the default 40
+# steps the f32 gradients sit 10-40 % off the f64 ones on solved lanes,
+# in the reference as in the port; 100 steps reach them within 1e-5
+MARKOWITZ_ARGS = dict(TUNED_ARGS, max_iters=300, epoch=100, refine_steps=10,
+                      cg_iters=100)
+# bench.py's softmax_duals row and its rescue ladder: deep polish, then
+# the stale-factor PCG mode, capacity 24, warm
+SM_ARGS = dict(TUNED_ARGS, max_iters=500, epoch=100, admm_eps_abs=3e-4,
+               admm_eps_rel=3e-4, refine_steps=20)
+SM_RESCUE = dict(TUNED_ARGS, max_iters=700, epoch=100, refine_steps=30,
+                 matmul_precision="highest")
+SM_LADDER = [SM_RESCUE, dict(SM_RESCUE, kkt_mode="pcg")]
+SM_CAPACITY = 24
+# a softmax fast route that fails on purpose: one epoch, no polish
+SM_FORCED_ARGS = dict(SM_ARGS, max_iters=100, refine_steps=0)
+# bench.py's sdp_trace row: Newton-Schulz PSD in the f32 inner loop,
+# exact eigh for statuses and the polish
+SDP_ARGS = dict(TUNED_ARGS, max_iters=1000, epoch=100, refine_steps=5)
 
 
 def ipm_args(args, **extra):
@@ -508,6 +546,63 @@ def lad_layer(ct, device, n=2, m=3):
                          device=device)
 
 
+def markowitz_layer(ct, device, n=50, k=10):
+    """bench.py's Markowitz SOCP: maximize mu'w under a risk budget
+    ||F w|| <= 0.25 on the simplex; F is a parameter, so the route is the
+    dense per-instance one."""
+    w = ct.Variable(n, nonneg=True)
+    mu = ct.Parameter(n)
+    F = ct.Parameter((k, n))
+    prob = ct.Problem(ct.Maximize(mu @ w),
+                      [ct.norm(F @ w, 2) <= 0.25, ct.sum(w) == 1])
+    return ct.CvxpyLayer(prob, parameters=[mu, F], variables=[w],
+                         device=device)
+
+
+def markowitz_params(r, B, n=50, k=10):
+    return [r.standard_normal((B, n)) * 0.1,
+            r.standard_normal((B, k, n)) / np.sqrt(n)]
+
+
+def softmax_layer(ct, device, n=32):
+    """bench.py's entropy-regularized softmax with its equality dual as a
+    second output: exponential cones, A constant (the shared route)."""
+    y = ct.Variable(n, nonneg=True)
+    c = ct.Parameter(n)
+    con = ct.sum(y) == 1
+    prob = ct.Problem(ct.Maximize(c @ y + ct.sum(ct.entr(y))), [con])
+    return ct.CvxpyLayer(prob, parameters=[c],
+                         variables=[y, con.dual_variables[0]], device=device)
+
+
+def softmax_params(r, B, n=32):
+    return [r.standard_normal((B, n))]
+
+
+def sdp_layer(ct, device, s=16):
+    """bench.py's spectahedron SDP: min tr(C X) over X PSD with tr X = 1;
+    the solution is the projector onto C's least eigenvector."""
+    X = ct.Variable((s, s), PSD=True)
+    C = ct.Parameter((s, s))
+    prob = ct.Problem(ct.Minimize(ct.trace(C @ X)), [ct.trace(X) == 1])
+    return ct.CvxpyLayer(prob, parameters=[C], variables=[X], device=device)
+
+
+def sdp_params(r, B, s=16):
+    C = r.standard_normal((B, s, s))
+    return [0.5 * (C + C.transpose(0, 2, 1))]
+
+
+def pow3_layer(ct, device, alpha=0.4):
+    """The projection onto a 3-D power cone, as a layer: its solution is
+    project_pow3(v)."""
+    x = ct.Variable(3)
+    v = ct.Parameter(3)
+    prob = ct.Problem(ct.Minimize(ct.sum_squares(x - v)),
+                      [ct.PowCone3D(x[0], x[1], x[2], alpha)])
+    return ct.CvxpyLayer(prob, parameters=[v], variables=[x], device=device)
+
+
 def to_dev(arrs, dtype, device=None):
     return [torch.as_tensor(a, dtype=dtype, device=device or DEV)
             for a in arrs]
@@ -526,30 +621,45 @@ RESCUE_CAPACITY = 16
 class Path:
     """A layer path at full width: its layer, its parameters (and their
     names), its solver_args, the kernel it must launch (`wants`), the
-    kernel it must not launch (`forbids`), the route it must take
-    ("dense" or "shared"), the lanes held against the port's own f64 CPU
-    run, and whether the gradient phase weighs x by a seeded vector
-    (sum(x) is constant on the simplex, so its gradient is zero). A path
-    with `rescue` (the stage's solver_args) runs through
-    solve_with_rescue; `forced` says its fast route fails on purpose, so
-    the stage must run on every call. `min_solved` is the solved
-    fraction a path must reach (None: a record). `agree_solved_only`
-    holds only the lanes solved on both devices against the f64 run, and
-    lets a lane that did not solve carry a non-finite x (the Anderson
-    route's f32 Gram inverse can overflow there, in the reference too);
-    solved lanes must be finite on every path."""
+    kernels it must not launch (`forbids`: a name or a tuple of names),
+    the route it must take ("dense" or "shared"), the lanes held against
+    the port's own f64 CPU run, and whether the gradient phase weighs the
+    outputs by seeded arrays (sum(x) is constant on the simplex, so its
+    gradient is zero). A path with `rescue` (a stage's solver_args, or a
+    ladder of them) runs through solve_with_rescue with `capacity` and
+    `warm` (warm_start_rescue); each stage must launch `stage_wants`;
+    `forced` says its fast route fails on purpose, so a stage must run on
+    every call. `min_solved` is the solved fraction a path must reach
+    (None: a record). `agree_solved_only` holds only the lanes solved on
+    both devices against the f64 run, and lets a lane that did not solve
+    carry a non-finite x (the Anderson route's f32 Gram inverse can
+    overflow there, in the reference too); solved lanes must be finite on
+    every path. `calls` is the number of timed calls after the warm-up."""
 
     def __init__(self, name, layer, build, params, names, args, wants,
                  forbids, route, agree_lanes, weighted=False, B=1024,
                  rescue=None, forced=False, min_solved=0.99,
-                 agree_solved_only=False):
+                 agree_solved_only=False, capacity=RESCUE_CAPACITY,
+                 warm=False, stage_wants="K1", calls=4):
         self.name, self.layer, self.build = name, layer, build
         self.params, self.names, self.args = params, names, args
-        self.wants, self.forbids, self.route = wants, forbids, route
+        self.wants, self.route = wants, route
+        self.forbids = ((forbids,) if isinstance(forbids, str)
+                        else tuple(forbids or ()))
         self.agree_lanes, self.weighted = agree_lanes, weighted
         self.B, self.rescue, self.forced = B, rescue, forced
         self.min_solved = min_solved
         self.agree_solved_only = agree_solved_only
+        self.capacity, self.warm = capacity, warm
+        self.stage_wants, self.calls = stage_wants, calls
+
+    @property
+    def ladder(self):
+        """The rescue stages' solver_args, as a list."""
+        if self.rescue is None:
+            return []
+        return (list(self.rescue) if isinstance(self.rescue, (list, tuple))
+                else [self.rescue])
 
     def solve(self, ct, layer, params):
         """(outs, status, iters) of one call of the path."""
@@ -557,7 +667,8 @@ class Path:
             return layer.solve_with_info(*params, solver_args=self.args)
         return ct.solve_with_rescue(
             layer, *params, solver_args=self.args,
-            rescue_args=self.rescue, capacity=RESCUE_CAPACITY)
+            rescue_args=self.rescue, capacity=self.capacity,
+            warm_start_rescue=self.warm)
 
 
 def lad_params(r, B):
@@ -630,15 +741,38 @@ PATHS = {
     "admm_aa_off": Path("admm_aa_off", "lad", lad_layer, lad_params, "Ab",
                         LAD_ARGS, "K1", None, "dense", 16,
                         agree_solved_only=True),
+    # the general cones (no kernel: the plain ADMM scan, K1 and K2 must
+    # stay at 0). bench.py's markowitz_socp fast route without its IPM
+    # rescue: a few percent of lanes are doubly degenerate there, so 0.90
+    "markowitz_admm": Path("markowitz_admm", "markowitz", markowitz_layer,
+                           markowitz_params, ["mu", "F"], MARKOWITZ_ARGS,
+                           None, ("K1", "K2"), "dense", 16, weighted=True,
+                           B=512, min_solved=0.90, agree_solved_only=True,
+                           calls=2),
+    # bench.py's softmax_duals row with its two-stage ladder (deep polish,
+    # then PCG), capacity 24, warm
+    "softmax_rescue": Path("softmax_rescue", "softmax", softmax_layer,
+                           softmax_params, ["c"], SM_ARGS, None,
+                           ("K1", "K2"), "shared", 16, weighted=True, B=512,
+                           rescue=SM_LADDER, capacity=SM_CAPACITY, warm=True,
+                           stage_wants=None, agree_solved_only=True,
+                           calls=2),
+    # bench.py's sdp_trace row: Newton-Schulz PSD in the f32 inner loop
+    "sdp_trace": Path("sdp_trace", "sdp", sdp_layer, sdp_params, ["C"],
+                      SDP_ARGS, None, ("K1", "K2"), "shared", 16,
+                      weighted=True, B=256, agree_solved_only=True, calls=2),
 }
 
 
 # the paths with a device profile and a gradient check (shared_off and
 # admm_aa_off are records of the same instances on another setting)
 PROFILED = ("admm", "ipm", "shared", "hsde", "lad_rescue",
-            "lad_rescue_forced", "ipm_rescue", "admm_aa")
+            "lad_rescue_forced", "ipm_rescue", "admm_aa", "markowitz_admm",
+            "softmax_rescue", "sdp_trace")
 # the paths of the rescue and Anderson slice
 RESCUE_PATHS = ("lad_rescue", "lad_rescue_forced", "ipm_rescue", "admm_aa")
+# the paths of the general-cone slice
+CONE_PATHS = ("markowitz_admm", "softmax_rescue", "sdp_trace")
 
 
 def route_of(layer, args):
@@ -661,9 +795,35 @@ def check_launches(what, launches, wants, forbids):
         return
     if wants and launches[wants] == 0:
         fail(f"{what}: {wants} was never launched")
-    if forbids and launches[forbids] != 0:
-        fail(f"{what}: {forbids} was launched {launches[forbids]} times "
-             "on a route without it")
+    for k in ((forbids,) if isinstance(forbids, str) else forbids or ()):
+        if launches[k] != 0:
+            fail(f"{what}: {k} was launched {launches[k]} times on a route "
+                 "without it")
+
+
+class EighCount:
+    """Counts the calls of torch.linalg.eigh (the exact PSD projection
+    and Jacobian factor; each reads the device once to check convergence)
+    while it is entered."""
+
+    def __enter__(self):
+        self.n = 0
+        self._eigh = torch.linalg.eigh
+
+        def counted(*a, **k):
+            self.n += 1
+            return self._eigh(*a, **k)
+
+        torch.linalg.eigh = counted
+        return self
+
+    def __exit__(self, *exc):
+        torch.linalg.eigh = self._eigh
+
+
+def flat_outputs(outs):
+    """The outputs of a call as one (B, k) tensor."""
+    return torch.cat([o.reshape(o.shape[0], -1) for o in outs], dim=1)
 
 
 class StageLog:
@@ -699,24 +859,33 @@ class StageLog:
 
 
 def check_rescue(path, records, outs, status, iters):
-    """One call of a rescue path against its stage records: a stage runs
-    iff the fast route left a lane unsolved, on a capacity-sized
-    sub-batch, launching the stage's kernel; the fast stage launches the
-    path's kernel; exactly min(failures, capacity) lanes were rescued
-    (their iterations grew), all of them failed lanes; every other lane
-    keeps the fast route's outputs and status bit for bit. Returns the
-    call's record and the rescued lanes."""
+    """One call of a rescue path against its stage records: stage k of the
+    ladder runs iff a lane was still unsolved after stage k-1 (so a call
+    that ends with a failed lane ran every stage), each on a
+    capacity-sized sub-batch, launching the stage's kernel; the fast stage
+    launches the path's kernel; the lanes whose iterations grew are
+    failed lanes, at least min(failures, capacity) and at most
+    min(failures, capacity x stages) of them (exactly the first for one
+    stage); every other lane keeps the fast route's outputs and status
+    bit for bit. Returns the call's record and the rescued lanes."""
     fast, stages = records[0], records[1:]
     B = fast["B"]
-    cap = min(RESCUE_CAPACITY, B)
+    cap = min(path.capacity, B)
     failed = fast["status"] != 0
     n_failed = int(failed.sum())
     rescued = iters != fast["iters"]
     n_rescued = int(rescued.sum())
+    n_ladder = len(path.ladder)
+    left = bool((status != 0).any())
     what = f"{path.name} rescue"
-    if fast["stage"] != "fast" or len(stages) != (1 if n_failed else 0):
+    ran_ok = (len(stages) == 0 if not n_failed
+              else 1 <= len(stages) <= n_ladder
+              and (len(stages) == n_ladder or not left))
+    if fast["stage"] != "fast" or not ran_ok or any(
+            r["stage"] != "rescue" for r in stages):
         fail(f"{what}: stages {[r['stage'] for r in records]} with "
-             f"{n_failed} failed lanes")
+             f"{n_failed} failed lanes, {int((status != 0).sum())} left, "
+             f"a ladder of {n_ladder}")
     if path.forced and not n_failed:
         fail(f"{what}: the forced fast route solved every lane")
     on_card = DEV == "cuda"
@@ -725,11 +894,15 @@ def check_rescue(path, records, outs, status, iters):
     for r in stages:
         if r["B"] != cap:
             fail(f"{what}: a stage solved {r['B']} lanes, capacity {cap}")
-        if on_card and r["launches"]["K1"] == 0:
-            fail(f"{what}: the stage on the sub-batch did not launch K1")
-    if n_rescued != min(n_failed, cap) or bool((rescued & ~failed).any()):
+        if on_card and path.stage_wants and \
+                r["launches"][path.stage_wants] == 0:
+            fail(f"{what}: the stage on the sub-batch did not launch "
+                 f"{path.stage_wants}")
+    most = min(n_failed, cap * max(len(stages), 1))
+    if (n_rescued < min(n_failed, cap) or n_rescued > most
+            or bool((rescued & ~failed).any())):
         fail(f"{what}: {n_rescued} lanes changed, {n_failed} failed, "
-             f"capacity {cap}")
+             f"capacity {cap}, {len(stages)} stages")
     keep = ~rescued
     if not (torch.equal(status[keep], fast["status"][keep])
             and all(torch.equal(o[keep], f[keep])
@@ -740,20 +913,23 @@ def check_rescue(path, records, outs, status, iters):
                solved_after=float((status == 0).float().mean()),
                failed=n_failed, rescued=n_rescued,
                rescued_solved=int((status[rescued] == 0).sum()),
+               stages=len(stages),
                fast_launches=fast["launches"],
                stage_batches=[r["B"] for r in stages],
                stage_launches=[r["launches"] for r in stages])
     return rec, rescued
 
 
-def main_path_phase(ct, counters, path, calls=4, B=None):
+def main_path_phase(ct, counters, path, calls=None, B=None):
     """A layer path at full width (`B` overrides the path's batch in a
     rehearsal) through solve_with_info, or solve_with_rescue on a rescue
-    path. `counters` maps each kernel's name to the module that counts
+    path, `calls` timed calls (the path's own count by default) after a
+    warm-up. `counters` maps each kernel's name to the module that counts
     its launches; every count is set to 0 just before the calls and read
-    just after."""
+    just after. Every output of the layer is held against the f64 run."""
     r = np.random.default_rng(0)
     B = B or path.B
+    calls = path.calls if calls is None else calls
     layer = path.build(ct, DEV)
     route, form = route_of(layer, path.args)
     if route != path.route:
@@ -771,38 +947,41 @@ def main_path_phase(ct, counters, path, calls=4, B=None):
     iters_max = []
     rescues = []
     first = None
-    for i, params in enumerate(inputs):
-        t0 = time.perf_counter()
-        (x,), status, iters = path.solve(ct, layer, params)
-        sync()
-        dt = (time.perf_counter() - t0) * 1e3
-        if i == 0:
-            first = (x, status, iters)
-        else:  # call 0 is the warm-up (allocator, library load)
-            times.append(dt)
-        solved.append(float((status == 0).float().mean()))
-        iters_max.append(int(iters.max()))
-        if log:
-            rescues.append(check_rescue(path, log.take(), (x,), status,
-                                        iters)[0])
+    with EighCount() as eigh:
+        for i, params in enumerate(inputs):
+            t0 = time.perf_counter()
+            outs, status, iters = path.solve(ct, layer, params)
+            sync()
+            dt = (time.perf_counter() - t0) * 1e3
+            if i == 0:
+                first = (outs, status, iters)
+            else:  # call 0 is the warm-up (allocator, library load)
+                times.append(dt)
+            solved.append(float((status == 0).float().mean()))
+            iters_max.append(int(iters.max()))
+            if log:
+                rescues.append(check_rescue(path, log.take(), outs, status,
+                                            iters)[0])
     launches = {k: mod.LAUNCHES for k, mod in counters.items()}
     check_launches(f"{path.name} path", launches, path.wants, path.forbids)
     if route == "shared" and not layer._shared_solvers:
         fail(f"{path.name}: the shared solver never ran")
 
-    x, status, iters = first
-    n = layer.prog.var_info[id(layer._outputs[0][1])].shape[0]
+    outs, status, iters = first
+    var = layer._outputs[0][1]
+    want_shape = (B,) + tuple(layer.prog.var_info[id(var)].shape)
+    x = flat_outputs(outs)
     finite = torch.isfinite(x).all(dim=1)
     must = (status == 0 if path.agree_solved_only
             else torch.ones_like(finite))
-    if tuple(x.shape) != (B, n) or not bool(finite[must].all()):
-        fail(f"{path.name} path: bad output {tuple(x.shape)}")
+    if tuple(outs[0].shape) != want_shape or not bool(finite[must].all()):
+        fail(f"{path.name} path: bad output {tuple(outs[0].shape)}")
     # reference: the port's own f64 CPU run on the first lanes
     k = path.agree_lanes
     cpu_layer = path.build(ct, "cpu")
-    (x64,), st64, _ = path.solve(
+    outs64, st64, _ = path.solve(
         ct, cpu_layer, to_dev([h[:k] for h in host[0]], torch.float64, "cpu"))
-    gap = (x[:k].double().cpu() - x64).abs().max(dim=1).values
+    gap = (x[:k].double().cpu() - flat_outputs(outs64)).abs().max(dim=1).values
     both = (status[:k].cpu() == 0) & (st64 == 0)
     if path.agree_solved_only:
         if not bool(both.any()):
@@ -812,16 +991,18 @@ def main_path_phase(ct, counters, path, calls=4, B=None):
     diff = float(gap.max())
     res = dict(
         path=path.name, layer=path.layer, route=route, ipm_form=form,
-        n=n, m=layer.prog.m, B=B,
+        n=layer.prog.n, m=layer.prog.m, dims=str(layer.prog.dims), B=B,
         dtype="float32", solver_args=path.args, calls=len(inputs),
         solved_fraction_first=solved[0],
         solved_fraction_min=min(solved),
+        solved_fraction_per_call=solved,
         iters_max_per_call=iters_max,
         iters_mean_first=float(iters.float().mean()),
         launches_before={k_: 0 for k_ in counters},
         launches_after=launches,
         launches_per_call={k_: v / len(inputs)
                            for k_, v in launches.items()},
+        eigh_calls_per_call=eigh.n / len(inputs),
         median_ms_per_call=statistics.median(times),
         ms_per_call=times,
         solves_per_s=B / statistics.median(times) * 1e3,
@@ -833,8 +1014,8 @@ def main_path_phase(ct, counters, path, calls=4, B=None):
         nonfinite_lanes_first=int((~finite).sum()),
     )
     if path.rescue:
-        res.update(rescue_args=path.rescue, capacity=RESCUE_CAPACITY,
-                   rescue_per_call=rescues)
+        res.update(rescue_args=path.rescue, capacity=path.capacity,
+                   warm=path.warm, rescue_per_call=rescues)
     say("main", json.dumps(res))
     if path.min_solved is not None and min(solved) < path.min_solved:
         fail(f"{path.name} path: solved fraction {min(solved)} < "
@@ -899,15 +1080,15 @@ def gradient_lanes(rescued, k=8):
     return lanes[:k]
 
 
-def gradient_phase(ct, counters, path, calls=3, B=None):
+def gradient_phase(ct, counters, path, calls=None, B=None):
     """Forward + backward through a layer path: finite gradients of
-    sum(x) (of w'x with a seeded w on a weighted path) with respect to
-    every parameter, and 8 instances' gradients against the port's f64
-    CPU gradients of the same instances: the first 8 of the first call,
-    or on a rescue path, of the first call whose rescue solved a lane, up
-    to 4 such lanes and the first lanes after them (a path whose fast
-    route failed no lane, or whose rescue solved none, compares the
-    first call's first 8 and says so).
+    sum(x) (of sum_i w_i'out_i over every output, with seeded w_i, on a
+    weighted path) with respect to every parameter, and 8 instances'
+    gradients against the port's f64 CPU gradients of the same instances:
+    the first 8 of the first call, or on a rescue path, of the first call
+    whose rescue solved a lane, up to 4 such lanes and the first lanes
+    after them (a path whose fast route failed no lane, or whose rescue
+    solved none, compares the first call's first 8 and says so).
     At eps 1e-4 the f32 solution sits ~1e-7 from the f64 one after the
     polish and the adjoint solve takes one refinement pass, so gradients
     agree to ~1e-4 of their scale; 1e-2 is the limit. Each parameter's
@@ -917,13 +1098,18 @@ def gradient_phase(ct, counters, path, calls=3, B=None):
     rounding and has no scale of its own."""
     r = np.random.default_rng(11)
     B = B or path.B
+    calls = max(path.calls - 1, 2) if calls is None else calls
     layer = path.build(ct, DEV)
     log = StageLog(layer, counters) if path.rescue else None
     host = [path.params(r, B) for _ in range(calls + 1)]
-    n = layer.prog.var_info[id(layer._outputs[0][1])].shape[0]
-    w = (np.random.default_rng(12).standard_normal((B, n)) if path.weighted
-         else np.ones((B, n)))
-    w32 = to_dev([w], torch.float32)[0]
+    w_rng = np.random.default_rng(12)
+    weights = None
+
+    def loss(outs, ws):
+        if not path.weighted:
+            return outs[0].sum()
+        return sum((o * w).sum() for o, w in zip(outs, ws))
+
     for mod in counters.values():
         mod.LAUNCHES = 0
     times = []
@@ -932,15 +1118,18 @@ def gradient_phase(ct, counters, path, calls=3, B=None):
         params = [t.requires_grad_() for t in to_dev(h, torch.float32)]
         sync()
         t0 = time.perf_counter()
-        (x,), status, iters = path.solve(ct, layer, params)
-        (x * w32).sum().backward()
+        outs, status, iters = path.solve(ct, layer, params)
+        if weights is None:
+            weights = [w_rng.standard_normal(tuple(o.shape)) for o in outs]
+            w32 = to_dev(weights, torch.float32)
+        loss(outs, w32).backward()
         sync()
         dt = (time.perf_counter() - t0) * 1e3
         if i:
             times.append(dt)
         rescued = torch.zeros(B, dtype=torch.bool)
         if log:
-            rescued = check_rescue(path, log.take(), (x,), status,
+            rescued = check_rescue(path, log.take(), outs, status,
                                    iters)[1].cpu()
         # the lanes a rescue solved
         runs.append((params, status, rescued & (status.cpu() == 0)))
@@ -960,8 +1149,9 @@ def gradient_phase(ct, counters, path, calls=3, B=None):
     cpu_layer = path.build(ct, "cpu")
     ref = [t.requires_grad_() for t in
            to_dev([a[lanes] for a in host[call]], torch.float64, "cpu")]
-    (x64,), st64, _ = path.solve(ct, cpu_layer, ref)
-    (x64 * to_dev([w[lanes]], torch.float64, "cpu")[0]).sum().backward()
+    outs64, st64, _ = path.solve(ct, cpu_layer, ref)
+    loss(outs64, to_dev([w[lanes] for w in weights], torch.float64,
+                        "cpu")).backward()
     both = (status[lanes].cpu() == 0) & (st64 == 0)
     rescued_compared = int((rescued[lanes] & both).sum())
     rel = []
@@ -972,7 +1162,8 @@ def gradient_phase(ct, counters, path, calls=3, B=None):
             scale = max(float(q.grad[both].abs().max()), 1e-3 * overall)
             rel.append(float((g - q.grad[both]).abs().max() / scale))
     res = dict(path=path.name, layer=path.layer, B=B, dtype="float32",
-               loss="w'x, w seeded" if path.weighted else "sum(x)",
+               loss="sum_i w_i'out_i, w seeded" if path.weighted
+               else "sum(x)",
                calls=len(host), fwd_bwd_median_ms=statistics.median(times),
                fwd_bwd_ms=times, launches=launches,
                compared_call=call,
@@ -999,13 +1190,32 @@ def gradient_phase(ct, counters, path, calls=3, B=None):
     return res
 
 
+# the forced softmax rescue of the small-layers phase: every lane of the
+# fast route fails, so both ladder stages, the PCG one among them, run on
+# the card on every call
+SOFTMAX_FORCED = Path("softmax_forced", "softmax", softmax_layer,
+                      softmax_params, ["c"], SM_FORCED_ARGS, None,
+                      ("K1", "K2"), "shared", 8, weighted=True, B=256,
+                      rescue=SM_LADDER, capacity=SM_CAPACITY, warm=True,
+                      stage_wants=None, forced=True, min_solved=None,
+                      agree_solved_only=True)
+
+
+def small_markowitz(ct, device):
+    return markowitz_layer(ct, device, n=10, k=3)
+
+
 def small_layers_phase(ct, counters):
     r = np.random.default_rng(1)
     B = 256
     out = {}
     simplex_v = [r.standard_normal((B, 20))]
     lad_ab = [r.standard_normal((B, 3, 2)), r.standard_normal((B, 3))]
-    # (name, layer, parameters, solver_args, kernel wanted, kernel
+    pow_v = [r.standard_normal((B, 3))]
+    soc = markowitz_params(r, B, n=10, k=3)
+    pow_args = dict(TUNED_ARGS, max_iters=1000, epoch=50, refine_steps=10)
+    cones = ("K1", "K2")
+    # (name, layer, parameters, solver_args, kernel wanted, kernels
     # forbidden, route)
     for name, build, params, args, wants, forbids, want_route in (
         # P and A constant: the default call takes the shared route
@@ -1023,6 +1233,14 @@ def small_layers_phase(ct, counters):
          "dense"),
         ("lad_ipm_pd", lad_layer, lad_ab, ipm_args(LAD_ARGS, ipm_mode="pd"),
          "K2", None, "dense"),
+        # the general cones: a power cone on the shared route (its
+        # solution is the cone's projection of v), and an SOC layer whose
+        # polish takes the stale-factor PCG and the spectral-Schur modes
+        ("pow3", pow3_layer, pow_v, pow_args, None, cones, "shared"),
+        ("soc_pcg", small_markowitz, soc,
+         dict(MARKOWITZ_ARGS, kkt_mode="pcg"), None, cones, "dense"),
+        ("soc_spectral", small_markowitz, soc,
+         dict(MARKOWITZ_ARGS, kkt_mode="spectral"), None, cones, "dense"),
     ):
         layer = build(ct, DEV)
         route, form = route_of(layer, args)
@@ -1050,11 +1268,98 @@ def small_layers_phase(ct, counters):
                    ipm_form=form, solved_fraction=solved,
                    iters_max=int(iters.max()), launches=launches,
                    max_abs_diff_vs_f64_cpu_solved_lanes=diff)
+        if name == "pow3":
+            from cvxpylayers_tpu_torch.cones.projections import project_pow3
+            proj = project_pow3(dev[0], 0.4)
+            ok = status == 0
+            rec["max_abs_diff_vs_projection_solved_lanes"] = float(
+                (x - proj).abs().max(dim=1).values[ok].max()) \
+                if bool(ok.any()) else None
+            if not bool(ok.any()) or \
+                    rec["max_abs_diff_vs_projection_solved_lanes"] > 2e-3:
+                fail(f"{name}: the layer is not the cone's projection")
         say("small", json.dumps(rec))
         if diff is not None and diff > 2e-3:
             fail(f"{name}: f32 cuda vs f64 cpu max abs diff {diff:.3e}")
         out[name] = rec
+    out["softmax_forced"] = forced_ladder_record(ct, counters)
+    out["tf32_pinned"] = tf32_record(ct)
     return out
+
+
+def tf32_record(ct):
+    """The package pins its own products to full f32: an SDP layer (the
+    Newton-Schulz inner loop, the exact polish, the PSD Jacobians) and the
+    SOC layer by the PCG mode give the same outputs with TF32 matmuls
+    allowed globally as without (within 1e-6; a TF32 product would move
+    them by ~1e-3)."""
+    r = np.random.default_rng(3)
+    B = 256
+    rec = {}
+    for name, build, params, args in (
+        ("sdp_s6", lambda ct_, dev: sdp_layer(ct_, dev, s=6),
+         sdp_params(r, B, s=6), SDP_ARGS),
+        ("soc_pcg", small_markowitz, markowitz_params(r, B, n=10, k=3),
+         dict(MARKOWITZ_ARGS, kkt_mode="pcg")),
+    ):
+        layer = build(ct, DEV)
+        dev = to_dev(params, torch.float32)
+        got = {}
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                (x,), status, _ = layer.solve_with_info(*dev,
+                                                        solver_args=args)
+                sync()
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            got[tf32] = (x, status)
+        diff = float((got[True][0] - got[False][0]).abs().max())
+        rec[name] = dict(max_abs_diff_tf32_on_vs_off=diff,
+                         same_status=bool(torch.equal(got[True][1],
+                                                      got[False][1])))
+        if diff > 1e-6 or not rec[name]["same_status"]:
+            fail(f"tf32 ({name}): outputs move by {diff:.3e} when TF32 "
+                 "matmuls are allowed")
+    say("small", json.dumps(dict(layer="tf32_pinned", B=B, **rec)))
+    return rec
+
+
+def forced_ladder_record(ct, counters):
+    """The forced softmax ladder at B=256: both stages run (the first
+    leaves every lane beyond its capacity unsolved), K1 and K2 stay at 0,
+    and the lanes solved on the card and by the same ladder in f64 on the
+    CPU agree within 2e-3."""
+    path = SOFTMAX_FORCED
+    layer = path.build(ct, DEV)
+    log = StageLog(layer, counters)
+    host = path.params(np.random.default_rng(2), path.B)
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    outs, status, iters = path.solve(ct, layer,
+                                     to_dev(host, torch.float32))
+    sync()
+    launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+    check_launches(path.name, launches, None, path.forbids)
+    rec, _ = check_rescue(path, log.take(), outs, status, iters)
+    if rec["stages"] != len(path.ladder):
+        fail(f"{path.name}: {rec['stages']} of {len(path.ladder)} ladder "
+             "stages ran")
+    k = path.agree_lanes
+    outs64, st64, _ = path.solve(ct, path.build(ct, "cpu"),
+                                 to_dev([h[:k] for h in host],
+                                        torch.float64, "cpu"))
+    both = (status[:k].cpu() == 0) & (st64 == 0)
+    gap = (flat_outputs(outs)[:k].double().cpu()
+           - flat_outputs(outs64)).abs().max(dim=1).values
+    diff = float(gap[both].max()) if bool(both.any()) else None
+    rec.update(layer=path.name, B=path.B, launches=launches,
+               lanes_solved_on_both=int(both.sum()),
+               max_abs_diff_vs_f64_cpu_solved_lanes=diff)
+    say("small", json.dumps(rec))
+    if diff is None or diff > 2e-3:
+        fail(f"{path.name}: f32 cuda vs f64 cpu max abs diff {diff}")
+    return rec
 
 
 def kernel_record(name, source, replaces, launches, main, shapes):
@@ -1122,18 +1427,25 @@ def main():
     # ---- 3. the paths at full width, each with its counts from 0
     counters = {"K1": cuda_admm, "K2": cuda_linalg}
     t0 = time.perf_counter()
-    launches = {name: main_path_phase(ct, counters, path)[1]
-                for name, path in PATHS.items()}
+    launches = {}
+    for name, path in PATHS.items():
+        t1 = time.perf_counter()
+        launches[name] = main_path_phase(ct, counters, path)[1]
+        say(f"path {name}: {time.perf_counter() - t1:.1f} s")
     say(f"phase main: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     for name in PROFILED:
+        t1 = time.perf_counter()
         profile_phase(ct, PATHS[name])
+        say(f"profile {name}: {time.perf_counter() - t1:.1f} s")
     say(f"phase profile: {time.perf_counter() - t0:.1f} s")
 
     # ---- 4. gradients through the layer
     t0 = time.perf_counter()
     for name in PROFILED:
+        t1 = time.perf_counter()
         gradient_phase(ct, counters, PATHS[name])
+        say(f"grad {name}: {time.perf_counter() - t1:.1f} s")
     say(f"phase grad: {time.perf_counter() - t0:.1f} s")
 
     # ---- 5. small layers
@@ -1142,9 +1454,11 @@ def main():
     say(f"phase small: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches on the main path of its slice and on every
-    # path this slice added
-    k1_launches = sum(launches[p]["K1"] for p in ("admm",) + RESCUE_PATHS)
-    k2_launches = sum(launches[p]["K2"] for p in ("ipm",) + RESCUE_PATHS)
+    # path a later slice added (the general-cone paths launch neither)
+    k1_launches = sum(launches[p]["K1"]
+                      for p in ("admm",) + RESCUE_PATHS + CONE_PATHS)
+    k2_launches = sum(launches[p]["K2"]
+                      for p in ("ipm",) + RESCUE_PATHS + CONE_PATHS)
     kernels = [
         kernel_record(
             "admm_polyhedral_epoch",

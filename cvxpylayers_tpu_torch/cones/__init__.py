@@ -3,13 +3,21 @@ from .jacobians import (
     make_cone_dproj_apply,
     make_cone_dproj_dense,
     make_cone_dproj_factored,
+    make_cone_dproj_spectral,
 )
 from .projections import (
     make_cone_projector,
+    make_dual_cone_projector,
+    project_exp,
     project_nonneg,
+    project_pow3,
+    project_psd_svec,
+    project_psd_svec_ns,
+    project_soc,
     project_zero,
     svec_indices,
     svec_to_sym,
+    sym_to_svec,
 )
 
 __all__ = [
@@ -17,9 +25,17 @@ __all__ = [
     "make_cone_dproj_apply",
     "make_cone_dproj_dense",
     "make_cone_dproj_factored",
+    "make_cone_dproj_spectral",
     "make_cone_projector",
+    "make_dual_cone_projector",
+    "project_exp",
     "project_nonneg",
+    "project_pow3",
+    "project_psd_svec",
+    "project_psd_svec_ns",
+    "project_soc",
     "project_zero",
     "svec_indices",
     "svec_to_sym",
+    "sym_to_svec",
 ]

@@ -17,6 +17,7 @@ from __future__ import annotations
 import itertools
 
 import numpy as np
+import torch
 
 from .expression import Expression, as_expression
 
@@ -204,10 +205,15 @@ class ExpCone(Constraint):
 
     @property
     def residual(self):
-        raise NotImplementedError(
-            "ExpCone.residual needs the exponential-cone projection, which "
-            "arrives with the general-cone later port slice"
-        )
+        """Distance of each (x, y, z) triple from the exponential cone."""
+        vals = [a.value for a in self.args]
+        if any(v is None for v in vals):
+            return None
+        from ..cones.projections import project_exp
+
+        tri = np.stack([np.asarray(v, float).ravel() for v in vals], axis=1)
+        p = project_exp(torch.as_tensor(tri)).numpy()
+        return np.linalg.norm(tri - p, axis=1).reshape(self.args[0].shape)
 
 
 class PSD(Constraint):
@@ -253,10 +259,16 @@ class PowCone3D(Constraint):
 
     @property
     def residual(self):
-        raise NotImplementedError(
-            "PowCone3D.residual needs the power-cone projection, which "
-            "arrives with the general-cone later port slice"
-        )
+        """Distance of each (x, y, z) triple from its power cone."""
+        vals = [a.value for a in self.args]
+        if any(v is None for v in vals):
+            return None
+        from ..cones.projections import project_pow3
+
+        tri = np.stack([np.asarray(v, float).ravel() for v in vals], axis=1)
+        p = project_pow3(torch.as_tensor(tri),
+                         torch.tensor(self.alpha)).numpy()
+        return np.linalg.norm(tri - p, axis=1).reshape(self.args[0].shape)
 
 
 class NonNeg(Constraint):

@@ -260,7 +260,6 @@ class CvxpyLayer:
         self.parameters = list(parameters)
         self.verbose = bool(verbose)
         self.prog: ConeProgram = stuff(problem, self.parameters)
-        require_polyhedral(self.prog.dims, "CvxpyLayer")
         self._base_settings = _settings_from_args(
             SolverSettings(), solver_args
         )
@@ -305,8 +304,13 @@ class CvxpyLayer:
         return len(self._outputs)
 
     def _check_route(self, settings: SolverSettings) -> None:
-        """Raise for the routes that later port slices bring."""
+        """Raise for the routes that later port slices bring: the sparse
+        assembly, and the interior-point method on a program with SOC,
+        exponential, PSD or power cones (a rescue stage with
+        solve_method="ipm" raises here too)."""
         p = self.prog
+        if settings.solve_method == "ipm":
+            require_polyhedral(p.dims, "solve_method='ipm'")
         sparse = settings.assembly == "sparse" or (
             settings.assembly == "auto" and p.m
             and p.m * p.n > _DENSE_ASSEMBLY_LIMIT

@@ -14,9 +14,12 @@ array carries the batch axis first (B instances of one structure):
     (batched Cholesky, a library call as in the reference);
   * `epoch` inner steps per factor: for polyhedral cones, the fused
     kernel K1 (solver/cuda_admm.py) on a CUDA tensor, its plain version
-    on a CPU tensor; with `accel_lookback > 0`, type-II Anderson
-    acceleration of the step in batched torch ops instead (the
-    reference's Pallas kernel, like K1, computes only the plain scan);
+    on a CPU tensor; for every other cone, the reference's plain scan in
+    batched torch ops, whose f32 projection takes the Newton-Schulz PSD
+    approximation (settings.psd_proj) and whose f64 one stays exact;
+    with `accel_lookback > 0`, type-II Anderson acceleration of the step
+    in batched torch ops instead (the reference's Pallas kernel, like K1,
+    computes only the plain scan);
   * residuals with the duality gap, Banjac-style infeasibility
     certificates and adaptive rho at every epoch boundary.
 
@@ -34,7 +37,7 @@ import numpy as np
 import torch
 
 from ..cones.dims import ConeDims
-from ..cones.projections import make_cone_projector, require_polyhedral
+from ..cones.projections import make_cone_projector, make_inner_projector
 from ..utils.precision import full_f32
 from .batched_linalg import spd_inv_via_chol
 from .cuda_admm import polyhedral_inner_epoch
@@ -219,10 +222,11 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
     picks a matmul-only inverse for the TPU; here both routes factor with
     the batched Cholesky."""
     del masked_factor
-    require_polyhedral(dims, "the ADMM solver")
     st = settings
     m = dims.total
     proj_K = make_cone_projector(dims)
+    proj_K_fast = make_inner_projector(dims, settings.psd_proj)
+    polyhedral = dims.is_polyhedral()
     group_ids, n_groups = _cone_row_groups(dims)
     is_eq_row_np = np.arange(m) < dims.zero
 
@@ -239,10 +243,22 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                            torch.nan).contiguous()
 
     def solve(P, q, A, b, x0, y0, s0):
+        # every product at full f32: the residuals r_p and r_d are
+        # cancellations (the reference's per-lane matvecs reduce in full
+        # f32), and a TF32 product would move the epoch a lane stops at
+        with full_f32():
+            return _solve(P, q, A, b, x0, y0, s0)
+
+    def _solve(P, q, A, b, x0, y0, s0):
         dtype = q.dtype
         device = q.device
         B = q.shape[0]
         P0, A0, q0, b0 = P, A, q, b
+        # f64 (the accuracy route) keeps the exact projector in the inner
+        # loop too: the Newton-Schulz soft threshold (~1e-3 of ||M||)
+        # would cap the active-face identification deep admm_eps targets
+        # need
+        pk_fast = proj_K if dtype == torch.float64 else proj_K_fast
 
         Ps, As, qs, bs, D, E, c = _ruiz_equilibrate(
             P, A, q, b, group_ids, n_groups, st.scaling_iters
@@ -304,7 +320,20 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
             )
 
         def proj_C(u):
-            return bs - proj_K(bs - u)
+            return bs - pk_fast(bs - u)
+
+        def run_epoch_plain(x_, z_, y_, minv, rho_):
+            """The reference's inner scan in batched torch ops, for the
+            cones K1 does not carry."""
+            for _ in range(st.epoch):
+                rhs = st.sigma * x_ - qs + bmv_t(As, rho_ * z_ - y_)
+                x_t = bmv(minv, rhs)
+                z_t = bmv(As, x_t)
+                x_ = st.alpha * x_t + (1 - st.alpha) * x_
+                w = st.alpha * z_t + (1 - st.alpha) * z_ + y_ / rho_
+                z_ = proj_C(w)
+                y_ = rho_ * (w - z_)
+            return x_, z_, y_
 
         def run_epoch_aa(x_, z_, y_, minv, rho_):
             """Type-II Anderson acceleration on the pre-projection state
@@ -345,7 +374,10 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                 ze = proj_C(wv)
                 return xv, ze, rho_ * (wv - ze)
 
-        epoch_step = run_epoch_aa if st.accel_lookback > 0 else run_epoch
+        if st.accel_lookback > 0:
+            epoch_step = run_epoch_aa
+        else:
+            epoch_step = run_epoch if polyhedral else run_epoch_plain
 
         def epoch_body(x_, z_, y_, rho_, it):
             minv = factor(Ps, As, rho_)

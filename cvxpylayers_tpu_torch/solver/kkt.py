@@ -18,10 +18,25 @@ from __future__ import annotations
 import torch
 
 from ..cones.dims import ConeDims
-from ..cones.jacobians import make_cone_dproj_dense, make_cone_dproj_factored
+from ..cones.jacobians import (
+    make_cone_dproj_dense,
+    make_cone_dproj_factored,
+    make_cone_dproj_spectral,
+)
 from ..cones.projections import make_cone_projector
 from ..utils.precision import full_f32
 from .admm import bmv, bmv_t
+from .batched_linalg import spd_inv_via_chol, use_masked
+
+# f32 general-cone dense-normal CG window on the KKT dimension n + m:
+# inside it the (n+m)^2 Jacobian is materialized once per Newton solve and
+# the normal matrix H = J'J formed explicitly, so every CG iteration is
+# one batched matvec instead of the operator chain. The reference measured
+# both alternatives worse outside the window (below: the operator chain
+# is already as small; above: H's reads and its eps*kappa^2 rounding).
+# solver_args={"kkt_mode": "operator"} never takes it.
+DENSE_NORMAL_MIN = 48
+DENSE_NORMAL_MAX = 144
 
 
 def make_kkt(dims: ConeDims, n: int):
@@ -30,9 +45,19 @@ def make_kkt(dims: ConeDims, n: int):
     dproj = make_cone_dproj_dense(dims)
 
     def residual(x, w, P, q, A, b):
+        """F(x, w), (B, n+m); x (B, k, n) and w (B, k, m) evaluate k
+        candidate points per lane at once (the polish's damping ladder),
+        (B, k, n+m)."""
         # F is a catastrophic cancellation (O(1) operands, near-zero
         # result): full f32, never TF32
         with full_f32():
+            if x.ndim == 3:
+                B, k = x.shape[:2]
+                Pi = proj(w.reshape(B * k, m)).reshape(B, k, m)
+                y = Pi - w
+                F1 = torch.bmm(x, P.mT) + q[:, None] + torch.bmm(y, A)
+                F2 = torch.bmm(x, A.mT) + Pi - b[:, None]
+                return torch.cat([F1, F2], dim=-1)
             Pi = proj(w)
             y = Pi - w
             F1 = bmv(P, x) + q + bmv_t(A, y)
@@ -57,6 +82,56 @@ def make_kkt(dims: ConeDims, n: int):
     return residual, jacobian, split
 
 
+def _trace(M: torch.Tensor) -> torch.Tensor:
+    return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
+
+
+def _spd_inv(M: torch.Tensor) -> torch.Tensor:
+    """Explicit inverses of a batch of f32 SPD matrices: the masked
+    Cholesky loop of the reference at its sizes (a clamped pivot, never
+    NaN), the library Cholesky and a triangular solve above them (NaN on
+    a lane whose factor fails, as the reference's)."""
+    dim = M.shape[-1]
+    if use_masked(dim):
+        return spd_inv_via_chol(M)
+    eye = torch.eye(dim, dtype=M.dtype, device=M.device)
+    L, info = torch.linalg.cholesky_ex(M)
+    Li = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+    Minv = torch.bmm(Li.mT, Li)
+    return torch.where((info == 0)[:, None, None], Minv, torch.nan)
+
+
+def make_kkt_precond(dims: ConeDims, n: int):
+    """build(x, w, P, q, A, b) -> W, an explicit approximate inverse of
+    the KKT Jacobian for the stale-factor PCG polish (kkt_mode='pcg').
+
+    One batched f32 LU solve per polish, then one Newton-Schulz
+    refinement W <- W(2I - J W), which squares the factorization residual
+    eps*kappa(J). A fixed probe vector keeps whichever of {W, refined W}
+    has the smaller true residual ||(I - J W) v||, so a diverging
+    refinement (kappa >~ 1e7) never makes the preconditioner worse."""
+    _, jacobian, _ = make_kkt(dims, n)
+    dim = n + dims.total
+
+    def build(x, w, P, q, A, b):
+        with full_f32():
+            J = jacobian(x, w, P, q, A, b)
+            scale = torch.diagonal(J, dim1=1, dim2=2).abs().mean(-1) + 1.0
+            eye = torch.eye(dim, dtype=J.dtype, device=J.device)
+            Jr = J + (1e-6 * scale)[:, None, None] * eye
+            W, _ = torch.linalg.solve_ex(Jr, eye.expand_as(Jr))
+            W = torch.where(torch.isfinite(W), W, 0.0)
+            W2 = torch.bmm(W, 2.0 * eye - torch.bmm(J, W))
+            v = torch.sin(torch.arange(dim, dtype=J.dtype, device=J.device))
+            v = v.expand(J.shape[0], dim)
+            r1 = torch.linalg.vector_norm(v - bmv(J, bmv(W, v)), dim=-1)
+            r2 = torch.linalg.vector_norm(v - bmv(J, bmv(W2, v)), dim=-1)
+            r2 = torch.where(torch.isfinite(r2), r2, torch.inf)
+            return torch.where((r2 < r1)[:, None, None], W2, W)
+
+    return build
+
+
 def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
                     schur_iters=None, p_diag_full: bool = True,
                     p_diag_only: bool = False, kkt_mode: str = "auto"):
@@ -73,22 +148,25 @@ def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
     explicit (P + sigma I)^{-1} (elementwise when P is structurally
     diagonal, else by Cholesky) plus CG on S = A_0 Pinv A_0'.
 
-    f32, polyhedral cones with an incomplete P diagonal (LPs such as
-    LAD): matvec-only CG on the normal equations.
-
-    kkt_mode 'spectral' and the dense-normal window serve general cones
-    and arrive with the general-cone later port slice."""
+    f32, every other program (general cones, and polyhedral ones whose P
+    diagonal is incomplete, such as LPs), by kkt_mode:
+      * "auto": CG on the normal equations at full f32; inside the
+        [DENSE_NORMAL_MIN, DENSE_NORMAL_MAX] window of n + m on a
+        general-cone program, with J materialized from the factored cone
+        Jacobian and H = J'J formed once per solve;
+      * "operator": the same CG, never materializing J;
+      * "spectral": the exact spectral-Schur solve (solve_spectral)
+        through D = Q diag(lam) Q', plus one refinement pass against the
+        true Jacobian;
+      * a preconditioner W given (the polish's "pcg" mode): left-
+        preconditioned CGNR, six iterations on (W J) d = W r."""
     from .linsolve import _cg_normal, _cg_spd
 
     m = dims.total
     _, jacobian, _ = make_kkt(dims, n)
     dfactor, dapply_f = make_cone_dproj_factored(dims)
+    spectral = make_cone_dproj_spectral(dims) if m else None
     polyhedral = dims.is_polyhedral() and p_diag_full
-    if kkt_mode == "spectral" and not polyhedral:
-        raise NotImplementedError(
-            "kkt_mode='spectral' arrives with the general-cone later port "
-            "slice"
-        )
     n_zero = dims.zero
     if not schur_iters:
         # auto: CG on the unsquared Schur system converges in about the
@@ -103,7 +181,7 @@ def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
         row = torch.arange(m, device=rhs.device)
         d = torch.where(row < n_zero, 0.0, (w > 0).to(dtype))
         inact = 1.0 - d  # rows entering the saddle system
-        sig = 1e-6 * (torch.diagonal(P, dim1=1, dim2=2).sum(-1) / n + 1.0)
+        sig = 1e-6 * (_trace(P) / n + 1.0)
         if p_diag_only:
             # P is structurally diagonal: (P + sig I)^{-1} is elementwise
             pd = 1.0 / (torch.diagonal(P, dim1=1, dim2=2) + sig[:, None])
@@ -147,15 +225,92 @@ def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
         v2 = d * r2 + inact * u
         return torch.cat([v1, v2], dim=-1)
 
+    def factor_spectral(w, P, A):
+        """The w-dependent part of the exact spectral-Schur solve, once
+        per solve (the reference's compiler shares it between the solve
+        and its refinement pass).
+
+        Rotated system (v2 = Q z, G = Q'A, s2 = Q'r2, D = Q diag(lam) Q'):
+          row1:  P v1 + G'(lam - 1) z = r1        (J)
+                 P v1 + G' z        = r1          (J')
+          row2:  G v1 + lam z = s2                (J)
+                 (lam - 1) G v1 + lam z = s2      (J')
+        Split at lam = 1/2. Rows with lam >= 1/2 eliminate z exactly via
+        C = (1-lam)/lam <= 1 into M = P + sigma I + (sqrt(C)G)'(sqrt(C)G)
+        (one n x n inverse). Rows with lam < 1/2 keep their exact lam
+        through the saddle: J and J' reduce to the same SPD system
+        H + diag(lam/(1-lam)) with H = G_N Minv G_N' (one m x m inverse).
+        Every derived diagonal is bounded by ~1, so no conditioning is
+        created beyond the problem's own; the decomposition is exact."""
+        dtype = w.dtype
+        # Q's construction and every product below at full f32: TF32
+        # degrades Q's orthogonality, which wrecks the directions
+        with full_f32():
+            Q, lam = spectral(w)
+            G = torch.bmm(Q.mT, A)
+            el = lam >= 0.5
+            msk_el = el.to(dtype)
+            msk_n = 1.0 - msk_el
+            lam_e = torch.where(el, lam, 1.0)        # for E-row divisions
+            one_m = torch.where(el, 1.0, 1.0 - lam)  # (1-lam) on N rows
+            C = msk_el * (1.0 - lam) / lam_e         # in [0, 1]
+            Dp = msk_n * lam / one_m                 # lam/(1-lam) in [0, 1)
+            sig = 1e-3 * (_trace(P) / n + 1.0)
+            Gc = torch.sqrt(C)[:, :, None] * G
+            eye_n = torch.eye(n, dtype=dtype, device=w.device)
+            M = P + sig[:, None, None] * eye_n + torch.bmm(Gc.mT, Gc)
+            Minv = _spd_inv(M)
+            GM = torch.bmm(G, Minv)  # (B, m, n)
+            H = msk_n[:, :, None] * torch.bmm(GM, G.mT) * msk_n[:, None, :]
+            # saddle diagonal floor scaled to H: the Gram product's f32
+            # rounding is ~eps*||H||
+            s_floor = 1e-6 * (_trace(H) / m) + 1e-7
+            S = H + torch.diag_embed(Dp + msk_el + s_floor[:, None] * msk_n)
+            Sinv = _spd_inv(S)
+        return Q, G, GM, Minv, Sinv, msk_el, msk_n, lam_e, one_m, C
+
+    def solve_spectral(fac, rhs, transpose):
+        """Exact spectral-Schur solve of J d = rhs (or J' d = rhs) from
+        factor_spectral's state."""
+        Q, G, GM, Minv, Sinv, msk_el, msk_n, lam_e, one_m, C = fac
+        r1 = rhs[:, :n]
+        with full_f32():
+            s2 = bmv_t(Q, rhs[:, n:])
+            if not transpose:
+                # M v1 - G_N' z'_N = rhat,  (H + Dp) z' = s2_N - G_N Minv
+                # rhat with z'_N = (1-lam) z_N
+                rhat = r1 + bmv_t(G, C * s2)
+                zp = bmv(Sinv, msk_n * (s2 - bmv(GM, rhat)))
+                v1 = bmv(Minv, rhat + bmv_t(G, msk_n * zp))
+                z = (msk_el * (s2 - bmv(G, v1)) / lam_e
+                     + msk_n * zp / one_m)
+            else:
+                # M v1 + G_N' z_N = rhat,
+                # (H + Dp) z_N = (1-lam)^{-1} s2_N + G_N Minv rhat
+                rhat = r1 - bmv_t(G, msk_el * s2 / lam_e)
+                zn = bmv(Sinv, msk_n * (s2 / one_m + bmv(GM, rhat)))
+                v1 = bmv(Minv, rhat - bmv_t(G, msk_n * zn))
+                z = (msk_el * (s2 / lam_e + C * bmv(G, v1))
+                     + msk_n * zn)
+            return torch.cat([v1, bmv(Q, z)], dim=-1)
+
+    last_jac = [None, None]  # ((x, w, P, A), J) of the last f64 solve
+
     def solve(x, w, P, q, A, b, rhs, transpose=False,
               regularized=False, iter_refine=False, precond=None):
-        if precond is not None:
-            raise NotImplementedError(
-                "the stale-factor PCG route (kkt_mode='pcg') arrives with "
-                "the general-cone later port slice"
-            )
+        """precond: an optional (B, n+m, n+m) approximate inverse of J
+        (make_kkt_precond): the f32 branch then runs left-preconditioned
+        CGNR on (W J) d = W r instead of CG on J'J, whose squared
+        conditioning is the accuracy floor on curvature-deficient
+        polishes."""
         if rhs.dtype == torch.float64:
-            J = jacobian(x, w, P, q, A, b)
+            # the polish asks for the exact and the regularized direction
+            # at the same point: the Jacobian is built once for both
+            key = (x, w, P, A)
+            if not (last_jac[0] and all(
+                    a is b_ for a, b_ in zip(last_jac[0], key))):
+                last_jac[:] = [key, jacobian(x, w, P, q, A, b)]
+            J = last_jac[1]
             M = J.mT if transpose else J
 
             def _reg_lstsq():
@@ -163,8 +318,7 @@ def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
                 # complementarity fails and J is numerically singular
                 MtM = torch.bmm(M.mT, M)
                 dim = MtM.shape[-1]
-                tr = torch.diagonal(MtM, dim1=1, dim2=2).sum(-1)
-                eps_r = 1e-12 * (tr / dim + 1.0)
+                eps_r = 1e-12 * (_trace(MtM) / dim + 1.0)
                 eye = torch.eye(dim, dtype=rhs.dtype, device=rhs.device)
                 L, _ = torch.linalg.cholesky_ex(MtM + eps_r[:, None, None]
                                                 * eye)
@@ -187,6 +341,9 @@ def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
                 return sol_ok
             return torch.where(good[:, None], sol_ok, _reg_lstsq())
 
+        # factor the projection Jacobian ONCE per solve: w is fixed for
+        # every matvec, and the exp/pow root finds and PSD eigh inside it
+        # would dominate if recomputed per matvec
         dstate = dfactor(w)
 
         def mv(v):
@@ -204,21 +361,69 @@ def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
                 dim=-1,
             )
 
+        a_op, aT_op = (mvT, mv) if transpose else (mv, mvT)
+        use_spectral = kkt_mode == "spectral" and not polyhedral
+        dense_normal = (
+            precond is None
+            and not use_spectral
+            and not dims.is_polyhedral()
+            and kkt_mode != "operator"
+            and 0 < m and DENSE_NORMAL_MIN <= (n + m) <= DENSE_NORMAL_MAX
+        )
+        if dense_normal:
+            # materialize J from the factored cone-Jacobian state (the
+            # root finds and eigh of dfactor are not recomputed: the
+            # apply is masks and small products over the identity)
+            with full_f32():
+                eye_m = torch.eye(m, dtype=rhs.dtype, device=rhs.device)
+                D = dapply_f(dstate, eye_m.expand(rhs.shape[0], m, m)).mT
+                Jd = torch.cat([
+                    torch.cat([P, torch.bmm(A.mT, D - eye_m)], dim=2),
+                    torch.cat([A, D], dim=2),
+                ], dim=1)
+                Md = Jd.mT if transpose else Jd
+                Hd = torch.bmm(Md.mT, Md)
+        fac = factor_spectral(w, P, A) if use_spectral else None
+
         def solve_once(r):
             if polyhedral:
                 return solve_polyhedral(x, w, P, q, A, b, r, transpose)
-            # CG on the normal equations at full f32
+            if use_spectral:
+                return solve_spectral(fac, r, transpose)
             with full_f32():
-                a, aT = (mvT, mv) if transpose else (mv, mvT)
-                return _cg_normal(a, aT, r, cg_iters)
+                if precond is not None:
+                    # left-preconditioned CGNR: with W ~ J0^{-1} (stale by
+                    # a few Newton steps), W J = I + O(step), so ~6
+                    # iterations reach the f32 floor whatever kappa(J)
+                    W = precond
+                    if transpose:
+                        # J' d = r  ->  (W'J') d = W'r
+                        return _cg_normal(lambda v_: bmv_t(W, mvT(v_)),
+                                          lambda u_: mv(bmv(W, u_)),
+                                          bmv_t(W, r), 6)
+                    # J d = r  ->  (W J) d = W r
+                    return _cg_normal(lambda v_: bmv(W, mv(v_)),
+                                      lambda u_: mvT(bmv_t(W, u_)),
+                                      bmv(W, r), 6)
+                # CG on the normal equations at full f32
+                if dense_normal:
+                    return _cg_spd(lambda v: bmv(Hd, v), bmv_t(Md, r),
+                                   cg_iters)
+                return _cg_normal(a_op, aT_op, r, cg_iters)
 
         sol = solve_once(rhs)
+        if use_spectral:
+            # one refinement pass against the TRUE Jacobian absorbs the
+            # spectral solve's regularization bias
+            with full_f32():
+                resid0 = rhs - a_op(sol)
+            sol = sol + solve_once(resid0)
         if iter_refine:
             # one step of iterative refinement with the true-precision
             # residual (used by the adjoint, where the solve accuracy is
             # the gradient accuracy)
             with full_f32():
-                resid = rhs - (mvT(sol) if transpose else mv(sol))
+                resid = rhs - a_op(sol)
             sol = sol + solve_once(resid)
         return sol
 

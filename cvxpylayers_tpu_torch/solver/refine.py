@@ -14,7 +14,7 @@ import torch
 from ..cones.dims import ConeDims
 from ..utils.precision import full_f32
 from .admm import SolveResult, amax_abs, bdot, bmv, bmv_t, make_admm_solver
-from .kkt import make_kkt, make_kkt_solver
+from .kkt import make_kkt, make_kkt_precond, make_kkt_solver
 from .settings import MAX_ITERS, SOLVED
 
 # Damping ladder for the Newton line search (each entry costs one cheap
@@ -23,7 +23,9 @@ from .settings import MAX_ITERS, SOLVED
 # non-monotone escape step and best-iterate tracking.
 _DAMPINGS = (1.0, 0.5, 0.25, 0.1, 0.03, 0.01)
 # forced step size taken when no damping descends (a non-monotone move
-# across the kink; the returned iterate is always the best seen)
+# across the kink; the returned iterate is always the best seen). Exact
+# directions (kkt_mode "spectral", and the PCG phase of "pcg") cross
+# kinks with the FULL step and escalate on <10% progress instead.
 _ESCAPE_STEP = 0.05
 
 
@@ -62,17 +64,25 @@ def _newton_polish_loop(residual, kkt_solve, n: int, steps: int,
                 )
             f0 = _norm(F)
 
-            best_x, best_w, best_f = x_, w_, f0
-            for d in dirs:
-                for a in _DAMPINGS:
-                    cx = x_ + a * d[:, :n]
-                    cw = w_ + a * d[:, n:]
-                    cf = _norm(residual(cx, cw, *data))
-                    cf = torch.where(torch.isfinite(cf), cf, torch.inf)
-                    take = cf < best_f
-                    best_x = torch.where(take[:, None], cx, best_x)
-                    best_w = torch.where(take[:, None], cw, best_w)
-                    best_f = torch.where(take, cf, best_f)
+            # every damping of every direction in ONE residual call (the
+            # candidates are independent). Walking them in the reference's
+            # order and taking each that is strictly below the best so far
+            # ends on the first candidate of least residual, if it beats
+            # f0: torch.min returns the first index of its minimum
+            cands = [(a, d) for d in dirs for a in _DAMPINGS]
+            cx = torch.stack([x_ + a * d[:, :n] for a, d in cands], dim=1)
+            cw = torch.stack([w_ + a * d[:, n:] for a, d in cands], dim=1)
+            cfs = _norm(residual(cx, cw, *data))
+            cfs = torch.where(torch.isfinite(cfs), cfs, torch.inf)
+            cmin, kmin = cfs.min(dim=1)
+            take = (cmin < f0)[:, None]
+            pick = kmin[:, None, None]
+            best_x = torch.where(
+                take, cx.gather(1, pick.expand(-1, 1, n)).squeeze(1), x_)
+            best_w = torch.where(
+                take, cw.gather(1, pick.expand(-1, 1, cw.shape[2]))
+                .squeeze(1), w_)
+            best_f = torch.where(take[:, 0], cmin, f0)
 
             # global best-iterate tracking (what the polish returns)
             upd = best_f < bf
@@ -105,14 +115,30 @@ def make_refiner(dims: ConeDims, n: int, steps: int,
                                 p_diag_full=p_diag_full,
                                 p_diag_only=p_diag_only,
                                 kkt_mode=kkt_mode)
+    # exact spectral directions cross semismooth kinks with full steps;
+    # the 0.05 escape tuned for least-squares CG directions never makes
+    # it across, so the spectral mode escapes with the full Newton step
+    # on <10% progress (best-iterate tracking bounds the risk)
     general = not (dims.is_polyhedral() and p_diag_full)
-    if kkt_mode == "pcg" and general and m > 0:
-        raise NotImplementedError(
-            "kkt_mode='pcg' arrives with the general-cone later port slice"
-        )
-    refine_xw = _newton_polish_loop(
-        residual, kkt_solve, n, steps, _ESCAPE_STEP, 1.0
+    exact_dirs = kkt_mode == "spectral" and general
+    escape = 1.0 if exact_dirs else _ESCAPE_STEP
+    stall_factor = 0.9 if exact_dirs else 1.0
+
+    use_pcg = kkt_mode == "pcg" and general and m > 0
+    build_precond = make_kkt_precond(dims, n) if use_pcg else None
+    # two phases: the first steps cross semismooth kinks with cheap CG
+    # directions (a factor built at step 0 is stale the moment the active
+    # set jumps), then ONE factorization where steps are small, and
+    # PCG's near-exact directions for the rest
+    steps_pcg = min(6, max(1, steps // 3)) if use_pcg else 0
+    steps_pre = steps - steps_pcg
+
+    refine_xw_plain = _newton_polish_loop(
+        residual, kkt_solve, n, steps, escape, stall_factor
     )
+    refine_xw_pre = (_newton_polish_loop(residual, kkt_solve, n, steps_pre,
+                                         _ESCAPE_STEP, 1.0)
+                     if use_pcg else None)
 
     def refine(x, y, s, P, q, A, b):
         if steps <= 0:
@@ -122,6 +148,19 @@ def make_refiner(dims: ConeDims, n: int, steps: int,
             sol, _ = torch.linalg.solve_ex(P, -q)
             return torch.where(_finite_rows(sol)[:, None], sol, x), y, s
         w = s - y
+        if use_pcg and x.dtype != torch.float64:
+            if steps_pre > 0:
+                x, w = refine_xw_pre(x, w, P, q, A, b)
+            W = build_precond(x, w, P, q, A, b)
+
+            def kkt_solve_pcg(*args_, **kw_):
+                return kkt_solve(*args_, precond=W, **kw_)
+
+            refine_xw = _newton_polish_loop(
+                residual, kkt_solve_pcg, n, steps_pcg, 1.0, 0.9
+            )
+        else:
+            refine_xw = refine_xw_plain
         x_, w_ = refine_xw(x, w, P, q, A, b)
         s_, y_ = split(w_)
         return x_, y_, s_
@@ -155,6 +194,11 @@ def make_polished_solver(dims: ConeDims, n: int, settings, base=None,
     residual, _, _ = make_kkt(dims, n)
 
     def solve(P, q, A, b, x0, y0, s0):
+        # every product at full f32 (the status's residual scales too)
+        with full_f32():
+            return _solve(P, q, A, b, x0, y0, s0)
+
+    def _solve(P, q, A, b, x0, y0, s0):
         res = base(P, q, A, b, x0, y0, s0)
         x, y, s = refine(res.x, res.y, res.s, P, q, A, b)
         # the gap below is a cancellation of O(1) terms down to eps

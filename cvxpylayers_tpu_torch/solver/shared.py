@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from ..cones.dims import ConeDims
-from ..cones.projections import make_cone_projector, require_polyhedral
+from ..cones.projections import make_cone_projector, make_inner_projector
 from ..utils.precision import full_f32
 from .admm import SolveResult, _cone_row_groups, amax_abs, bdot
 from .settings import (
@@ -90,8 +90,8 @@ def make_shared_admm_solver(dims: ConeDims, n: int,
     device per epoch to know when every lane has stopped."""
     m = dims.total
     assert m > 0, "shared route requires constraints"
-    require_polyhedral(dims, "the shared ADMM solver")
     proj_K = make_cone_projector(dims)
+    proj_K_fast = make_inner_projector(dims, settings.psd_proj)
     group_ids, n_groups = _cone_row_groups(dims)
     st = settings
 
@@ -115,9 +115,6 @@ def make_shared_admm_solver(dims: ConeDims, n: int,
                            for k, v in host.items()}
         return consts[key]
 
-    def proj_C(u, b):
-        return b - proj_K(b - u)
-
     def solve(q, b, x0, y0, s0):
         # always full-f32 products in here: the shared route's point is
         # batching the per-lane matvecs into (B, m) @ (m, n) products,
@@ -130,6 +127,8 @@ def make_shared_admm_solver(dims: ConeDims, n: int,
         device = q.device
         B = q.shape[0]
         cs = constants(dtype, device)
+        # f64 keeps the exact projector in the inner loop (solver/admm.py)
+        pk = proj_K if dtype == torch.float64 else proj_K_fast
         P0, A0, Ps, As, D, E = (cs[k] for k in ("P0", "A0", "Ps", "As",
                                                  "D", "E"))
         eye = torch.eye(n, dtype=dtype, device=device)
@@ -200,7 +199,7 @@ def make_shared_admm_solver(dims: ConeDims, n: int,
             Zt = Xt @ As.T
             Xn = st.alpha * Xt + (1 - st.alpha) * X_
             W = st.alpha * Zt + (1 - st.alpha) * Z_ + Y_ / rho[None, :]
-            Zn = proj_C(W, bs)
+            Zn = bs - pk(bs - W)
             Yn = rho[None, :] * (W - Zn)
             return Xn, Zn, Yn
 

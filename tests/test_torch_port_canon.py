@@ -159,8 +159,12 @@ def test_out_of_slice_features_raise():
     x = ct.Variable(3)
     p = ct.Parameter(3)
     soc = ct.Problem(ct.Minimize(ct.norm(x - p, 2)))
+    # a general-cone layer builds and solves by ADMM; the interior-point
+    # method's cone blocks are a later slice
+    layer = ct.CvxpyLayer(soc, parameters=[p], variables=[x], device="cpu")
     with pytest.raises(NotImplementedError, match="later port slice"):
-        ct.CvxpyLayer(soc, parameters=[p], variables=[x], device="cpu")
+        layer(torch.zeros(3, dtype=torch.float64),
+              solver_args={"solve_method": "ipm"})
     with pytest.raises(NotImplementedError, match="later port slice"):
         ct.Problem(ct.Minimize(ct.sum_squares(x - p))).solve()
     with pytest.raises(NotImplementedError, match="later port slice"):
