@@ -33,7 +33,16 @@ Phases (any failure exits non-zero before the result line):
              route), its entropy softmax with the equality dual behind
              the two-stage rescue ladder (B=512, shared route) and its
              16x16 spectahedron SDP (B=256, shared route, Newton-Schulz
-             PSD in the inner loop). Solved fraction, route, iterations,
+             PSD in the inner loop); and the interior-point method's cone
+             blocks: bench.py's Markowitz SOCP in full (the fast route,
+             then its self-dual-embedding IPM rescue of capacity 64, K2
+             on the rescued sub-batch), the same instances with every
+             lane through that IPM (K2 once per iteration at
+             (512, 113, 51)), the 32x32 spectahedron by the IPM (B=128,
+             one PSD block of svec 528: the Cholesky route, no kernel)
+             and the Markowitz SOCP at n=500 (B=128, the structural
+             block apply, a primal-dual IPM rescue of capacity 16, no
+             kernel). Solved fraction, route, iterations,
              exact-eigh calls, ms per call with fresh inputs, agreement of
              the first lanes' outputs with the port's own f64 CPU run; a
              device profile of one call of each profiled path
@@ -44,10 +53,12 @@ Phases (any failure exits non-zero before the result line):
              route: shared and dense ADMM, the IPM's primal-dual form and
              its self-dual embedding; a power-cone projection layer, an
              SOC layer whose polish takes the PCG and the spectral KKT
-             modes, and the softmax ladder behind a fast route that fails
-             on purpose, so both of its stages run on the card; and
-             the same outputs with TF32 matmuls allowed globally as
-             without (the package pins its own products)
+             modes, the softmax (32 exp triples) and the power-cone
+             layer through the IPM's primal-dual form, and the softmax
+             ladder behind a fast route that fails on purpose, so both
+             of its stages run on the card; and the same outputs with
+             TF32 matmuls allowed globally as without (the package pins
+             its own products)
 
 Imports nothing of JAX or of cvxpylayers_tpu. The second-to-last lines
 are the card's name and power limit and the per-kernel JSON record; the
@@ -112,13 +123,30 @@ TUNED_ARGS = {
     "eps_abs": 1e-4, "eps_rel": 1e-4, "admm_eps_abs": 1e-3,
     "admm_eps_rel": 1e-3, "max_iters": 50, "epoch": 50, "refine_steps": 4,
 }
-# bench.py's markowitz_socp fast route; its interior-point rescue waits
-# for the IPM's cone blocks. The f32 KKT solves there (n + m = 114, the
-# dense-normal window) run CG on the normal equations: at the default 40
-# steps the f32 gradients sit 10-40 % off the f64 ones on solved lanes,
-# in the reference as in the port; 100 steps reach them within 1e-5
+# bench.py's markowitz_socp fast route. The f32 KKT solves there
+# (n + m = 114, the dense-normal window) run CG on the normal equations:
+# at the default 40 steps the f32 gradients sit 10-40 % off the f64 ones
+# on solved lanes, in the reference as in the port; 100 steps reach them
+# within 1e-5
 MARKOWITZ_ARGS = dict(TUNED_ARGS, max_iters=300, epoch=100, refine_steps=10,
                       cg_iters=100)
+# its rescue stage: the IPM (the self-dual embedding: P = 0 and only
+# symmetric cones) to eps/10, then the spectral polish; capacity 64
+MARKOWITZ_IPM_ARGS = dict(TUNED_ARGS, solve_method="ipm",
+                          kkt_mode="spectral", refine_steps=15, ipm_eps=1e-5,
+                          matmul_precision="highest")
+MARKOWITZ_CAPACITY = 64
+# bench.py's sdp_trace_32 row: the 32x32 spectahedron by the IPM
+SDP32_ARGS = dict(TUNED_ARGS, assembly="dense", solve_method="ipm",
+                  kkt_mode="spectral", refine_steps=10, ipm_eps=1e-5,
+                  matmul_precision="highest")
+# bench.py's markowitz_large_n500 row and its primal-dual IPM rescue of
+# capacity 16, both at eps 1e-3
+N500_ARGS = dict(TUNED_ARGS, assembly="dense", solve_method="ipm",
+                 kkt_mode="spectral", refine_steps=6, ipm_eps=1e-6,
+                 matmul_precision="highest", eps_abs=1e-3, eps_rel=1e-3)
+N500_RESCUE = dict(N500_ARGS, ipm_mode="pd", refine_steps=20, ipm_eps=3e-7)
+N500_CAPACITY = 16
 # bench.py's softmax_duals row and its rescue ladder: deep polish, then
 # the stale-factor PCG mode, capacity 24, warm
 SM_ARGS = dict(TUNED_ARGS, max_iters=500, epoch=100, admm_eps_abs=3e-4,
@@ -412,6 +440,9 @@ def qr_kernel_phase(cuda_linalg):
         ("ragged B, simplex tile f32", 1000, 40, 20, torch.float32, False),
         ("zero columns f32", 1000, 40, 20, torch.float32, True),
         ("beyond shared memory f32", 64, 560, 160, torch.float32, False),
+        # the Markowitz IPM's stacked factor [Lp'; B A_in]: 51 rows of
+        # Lp', 62 scaled inequality rows with a dense SOC block
+        ("markowitz IPM f32", 512, 113, 51, torch.float32, False),
     ]
     shapes = []
     for label, B, m, n, dtype, zero_col in cases:
@@ -634,13 +665,19 @@ class Path:
     both devices against the f64 run, and lets a lane that did not solve
     carry a non-finite x (the Anderson route's f32 Gram inverse can
     overflow there, in the reference too); solved lanes must be finite on
-    every path. `calls` is the number of timed calls after the warm-up."""
+    every path. `calls` is the number of timed calls after the warm-up.
+    `k2_per_iteration`: every K2 launch of the path must be at the shape
+    of its stacked factor [Lp'; B A_in], one per IPM iteration.
+    `grad_floor`: the gradient phase takes each parameter's error over
+    its own largest f64 gradient or over this fraction of the largest of
+    all parameters, whichever is larger."""
 
     def __init__(self, name, layer, build, params, names, args, wants,
                  forbids, route, agree_lanes, weighted=False, B=1024,
                  rescue=None, forced=False, min_solved=0.99,
                  agree_solved_only=False, capacity=RESCUE_CAPACITY,
-                 warm=False, stage_wants="K1", calls=4):
+                 warm=False, stage_wants="K1", calls=4,
+                 k2_per_iteration=False, grad_floor=1e-3):
         self.name, self.layer, self.build = name, layer, build
         self.params, self.names, self.args = params, names, args
         self.wants, self.route = wants, route
@@ -652,6 +689,8 @@ class Path:
         self.agree_solved_only = agree_solved_only
         self.capacity, self.warm = capacity, warm
         self.stage_wants, self.calls = stage_wants, calls
+        self.k2_per_iteration = k2_per_iteration
+        self.grad_floor = grad_floor
 
     @property
     def ladder(self):
@@ -761,6 +800,47 @@ PATHS = {
     "sdp_trace": Path("sdp_trace", "sdp", sdp_layer, sdp_params, ["C"],
                       SDP_ARGS, None, ("K1", "K2"), "shared", 16,
                       weighted=True, B=256, agree_solved_only=True, calls=2),
+    # the interior-point method's cone blocks. bench.py's markowitz_socp
+    # in full: the fast route, then the IPM rescue of the failed lanes on
+    # a sub-batch of 64, whose condensed f32 KKT goes through K2
+    "markowitz_rescue": Path("markowitz_rescue", "markowitz",
+                             markowitz_layer, markowitz_params, ["mu", "F"],
+                             MARKOWITZ_ARGS, None, "K1", "dense", 16,
+                             weighted=True, B=512, rescue=MARKOWITZ_IPM_ARGS,
+                             capacity=MARKOWITZ_CAPACITY, stage_wants="K2",
+                             agree_solved_only=True, calls=2),
+    # the same instances with every lane through that IPM: K2 once per
+    # iteration at (512, 113, 51)
+    "markowitz_ipm": Path("markowitz_ipm", "markowitz", markowitz_layer,
+                          markowitz_params, ["mu", "F"], MARKOWITZ_IPM_ARGS,
+                          "K2", "K1", "dense", 16, weighted=True, B=512,
+                          agree_solved_only=True, calls=2,
+                          k2_per_iteration=True),
+    # bench.py's sdp_trace_32: one PSD block of svec 528, n = 528 > 160,
+    # so the condensed KKT takes the Jacobi-scaled Cholesky, no kernel
+    "sdp_ipm_32": Path("sdp_ipm_32", "sdp32",
+                       lambda ct, dev: sdp_layer(ct, dev, s=32),
+                       lambda r, B: sdp_params(r, B, s=32), ["C"],
+                       SDP32_ARGS, None, ("K1", "K2"), "dense", 4,
+                       weighted=True, B=128, min_solved=None,
+                       agree_solved_only=True, calls=1),
+    # bench.py's markowitz_large_n500: 532 inequality rows in two blocks,
+    # so the scaling is applied block by block; its primal-dual rescue.
+    # The optimum sits at a degenerate vertex where w does not move with
+    # mu: the f64 gradient in mu is 0 (~1e-15), and the f32 adjoint there
+    # returns noise of ~1e-3 of the largest gradient (F's), in the
+    # reference too (1.24e-3 on the first 8 lanes, CPU, against 0.96 for
+    # F). So each parameter's error is taken over the largest gradient
+    "markowitz_n500": Path("markowitz_n500", "markowitz500",
+                           lambda ct, dev: markowitz_layer(ct, dev, n=500,
+                                                           k=30),
+                           lambda r, B: markowitz_params(r, B, n=500, k=30),
+                           ["mu", "F"], N500_ARGS, None, ("K1", "K2"),
+                           "dense", 4, weighted=True, B=128,
+                           rescue=N500_RESCUE, capacity=N500_CAPACITY,
+                           stage_wants=None, min_solved=None,
+                           agree_solved_only=True, calls=1,
+                           grad_floor=1.0),
 }
 
 
@@ -768,25 +848,33 @@ PATHS = {
 # admm_aa_off are records of the same instances on another setting)
 PROFILED = ("admm", "ipm", "shared", "hsde", "lad_rescue",
             "lad_rescue_forced", "ipm_rescue", "admm_aa", "markowitz_admm",
-            "softmax_rescue", "sdp_trace")
+            "softmax_rescue", "sdp_trace", "markowitz_rescue",
+            "markowitz_ipm", "sdp_ipm_32", "markowitz_n500")
 # the paths of the rescue and Anderson slice
 RESCUE_PATHS = ("lad_rescue", "lad_rescue_forced", "ipm_rescue", "admm_aa")
 # the paths of the general-cone slice
 CONE_PATHS = ("markowitz_admm", "softmax_rescue", "sdp_trace")
+# the paths of the IPM cone-block slice
+IPM_CONE_PATHS = ("markowitz_rescue", "markowitz_ipm", "sdp_ipm_32",
+                  "markowitz_n500")
 
 
 def route_of(layer, args):
     """The route the layer takes for these solver_args, and for the
     interior-point method the form (the self-dual embedding when P is
-    structurally zero under ipm_mode "auto" or "hsde")."""
+    structurally zero under ipm_mode "hsde", or under "auto" when every
+    cone is symmetric)."""
     from cvxpylayers_tpu_torch.layer.cvxpylayer import _settings_from_args
 
     st = _settings_from_args(layer._base_settings, args)
     route = "shared" if layer._use_shared(st) else "dense"
     form = None
     if st.solve_method == "ipm":
-        form = ("hsde" if layer.prog.P_rows.size == 0
-                and st.ipm_mode in ("auto", "hsde") else "pd")
+        dims = layer.prog.dims
+        symmetric = dims.exp == 0 and not dims.pow3
+        hsde = layer.prog.P_rows.size == 0 and (
+            st.ipm_mode == "hsde" or (st.ipm_mode == "auto" and symmetric))
+        form = "hsde" if hsde else "pd"
     return route, form
 
 
@@ -802,23 +890,52 @@ def check_launches(what, launches, wants, forbids):
 
 
 class EighCount:
-    """Counts the calls of torch.linalg.eigh (the exact PSD projection
-    and Jacobian factor; each reads the device once to check convergence)
-    while it is entered."""
+    """Counts the calls of torch.linalg.eigh and eigvalsh (the exact PSD
+    projection and Jacobian factor, the IPM's PSD scalings, step lengths
+    and membership tests, its exp/pow Hessian factors; each reads the
+    device once to check convergence) while it is entered."""
+
+    _NAMES = ("eigh", "eigvalsh")
 
     def __enter__(self):
         self.n = 0
-        self._eigh = torch.linalg.eigh
+        self._orig = {k: getattr(torch.linalg, k) for k in self._NAMES}
 
-        def counted(*a, **k):
-            self.n += 1
-            return self._eigh(*a, **k)
+        def counted(fn):
+            def call(*a, **k):
+                self.n += 1
+                return fn(*a, **k)
+            return call
 
-        torch.linalg.eigh = counted
+        for k, fn in self._orig.items():
+            setattr(torch.linalg, k, counted(fn))
         return self
 
     def __exit__(self, *exc):
-        torch.linalg.eigh = self._eigh
+        for k, fn in self._orig.items():
+            setattr(torch.linalg, k, fn)
+
+
+class QrShapes:
+    """Records the shape of every matrix the IPM hands to K2's wrapper
+    (cvxpylayers_tpu_torch.solver.ipm.qr_r) while it is entered; it calls
+    the wrapper itself, so the launch counts are unchanged."""
+
+    def __enter__(self):
+        from cvxpylayers_tpu_torch.solver import ipm
+
+        self.shapes = []
+        self._ipm, self._qr = ipm, ipm.qr_r
+
+        def logged(M):
+            self.shapes.append(tuple(M.shape))
+            return self._qr(M)
+
+        ipm.qr_r = logged
+        return self
+
+    def __exit__(self, *exc):
+        self._ipm.qr_r = self._qr
 
 
 def flat_outputs(outs):
@@ -947,7 +1064,7 @@ def main_path_phase(ct, counters, path, calls=None, B=None):
     iters_max = []
     rescues = []
     first = None
-    with EighCount() as eigh:
+    with EighCount() as eigh, QrShapes() as qr_shapes:
         for i, params in enumerate(inputs):
             t0 = time.perf_counter()
             outs, status, iters = path.solve(ct, layer, params)
@@ -964,6 +1081,15 @@ def main_path_phase(ct, counters, path, calls=None, B=None):
                                             iters)[0])
     launches = {k: mod.LAUNCHES for k, mod in counters.items()}
     check_launches(f"{path.name} path", launches, path.wants, path.forbids)
+    # the stacked factor [Lp'; B A_in] of the IPM's condensed KKT
+    k2_shape = (B, layer.prog.m - layer.prog.dims.zero + layer.prog.n,
+                layer.prog.n)
+    if path.k2_per_iteration and DEV == "cuda" and (
+            set(qr_shapes.shapes) != {k2_shape}
+            or launches["K2"] != sum(iters_max)):
+        fail(f"{path.name} path: K2 ran {launches['K2']} times at "
+             f"{sorted(set(qr_shapes.shapes))} over {sum(iters_max)} "
+             f"iterations, expected one launch an iteration at {k2_shape}")
     if route == "shared" and not layer._shared_solvers:
         fail(f"{path.name}: the shared solver never ran")
 
@@ -1003,6 +1129,7 @@ def main_path_phase(ct, counters, path, calls=None, B=None):
         launches_per_call={k_: v / len(inputs)
                            for k_, v in launches.items()},
         eigh_calls_per_call=eigh.n / len(inputs),
+        k2_shapes=sorted(set(qr_shapes.shapes)),
         median_ms_per_call=statistics.median(times),
         ms_per_call=times,
         solves_per_s=B / statistics.median(times) * 1e3,
@@ -1093,9 +1220,9 @@ def gradient_phase(ct, counters, path, calls=None, B=None):
     polish and the adjoint solve takes one refinement pass, so gradients
     agree to ~1e-4 of their scale; 1e-2 is the limit. Each parameter's
     error is taken over its own largest f64 gradient, or over 1e-3 of the
-    largest of all parameters where that is larger: an LP's solution does
-    not move with its cost vector, so that gradient is zero up to
-    rounding and has no scale of its own."""
+    largest of all parameters where that is larger (the path's
+    grad_floor): an LP's solution does not move with its cost vector, so
+    that gradient is zero up to rounding and has no scale of its own."""
     r = np.random.default_rng(11)
     B = B or path.B
     calls = max(path.calls - 1, 2) if calls is None else calls
@@ -1159,7 +1286,8 @@ def gradient_phase(ct, counters, path, calls=None, B=None):
         overall = max(float(q.grad[both].abs().max()) for q in ref)
         for p, q in zip(params, ref):
             g = p.grad[lanes].double().cpu()[both]
-            scale = max(float(q.grad[both].abs().max()), 1e-3 * overall)
+            scale = max(float(q.grad[both].abs().max()),
+                        path.grad_floor * overall)
             rel.append(float((g - q.grad[both]).abs().max() / scale))
     res = dict(path=path.name, layer=path.layer, B=B, dtype="float32",
                loss="sum_i w_i'out_i, w seeded" if path.weighted
@@ -1172,6 +1300,7 @@ def gradient_phase(ct, counters, path, calls=None, B=None):
                rescued_lanes_solved_per_call=[int(run[2].sum())
                                               for run in runs],
                rescued_lanes_compared=rescued_compared,
+               grad_floor=path.grad_floor,
                grad_rel_err_vs_f64_cpu=dict(zip(path.names, rel)),
                grad_abs_max=[float(p.grad.abs().max()) for p in params],
                grad_abs_max_f64=[float(q.grad.abs().max()) for q in ref])
@@ -1213,6 +1342,7 @@ def small_layers_phase(ct, counters):
     lad_ab = [r.standard_normal((B, 3, 2)), r.standard_normal((B, 3))]
     pow_v = [r.standard_normal((B, 3))]
     soc = markowitz_params(r, B, n=10, k=3)
+    sm_c = softmax_params(r, B)
     pow_args = dict(TUNED_ARGS, max_iters=1000, epoch=50, refine_steps=10)
     cones = ("K1", "K2")
     # (name, layer, parameters, solver_args, kernel wanted, kernels
@@ -1241,15 +1371,25 @@ def small_layers_phase(ct, counters):
          dict(MARKOWITZ_ARGS, kkt_mode="pcg"), None, cones, "dense"),
         ("soc_spectral", small_markowitz, soc,
          dict(MARKOWITZ_ARGS, kkt_mode="spectral"), None, cones, "dense"),
+        # the IPM's nonsymmetric blocks: the primal-dual form, which
+        # "auto" takes for exp and power cones (n > 160 on neither, so a
+        # K2 launch per iteration and one for the initial point)
+        ("softmax_ipm", softmax_layer, sm_c,
+         ipm_args(SM_ARGS, ipm_max_iters=50), "K2", "K1", "dense"),
+        ("pow3_ipm", pow3_layer, pow_v, ipm_args(pow_args, ipm_max_iters=50),
+         "K2", "K1", "dense"),
     ):
         layer = build(ct, DEV)
         route, form = route_of(layer, args)
         if route != want_route:
             fail(f"{name}: route {route}, expected {want_route}")
+        if name in ("softmax_ipm", "pow3_ipm") and form != "pd":
+            fail(f"{name}: the IPM took the {form} form, expected pd")
         dev = to_dev(params, torch.float32)
         for mod in counters.values():
             mod.LAUNCHES = 0
-        (x,), status, iters = layer.solve_with_info(*dev, solver_args=args)
+        (x, *_), status, iters = layer.solve_with_info(*dev,
+                                                      solver_args=args)
         sync()
         launches = {k: mod.LAUNCHES for k, mod in counters.items()}
         solved = float((status == 0).float().mean())
@@ -1258,7 +1398,7 @@ def small_layers_phase(ct, counters):
             fail(f"{name}: non-finite output")
         k = 8
         cpu = build(ct, "cpu")
-        (x64,), st64, _ = cpu.solve_with_info(
+        (x64, *_), st64, _ = cpu.solve_with_info(
             *to_dev([p[:k] for p in params], torch.float64, "cpu"),
             solver_args=args)
         both = ((status[:k].cpu() == 0) & (st64 == 0))
@@ -1268,7 +1408,7 @@ def small_layers_phase(ct, counters):
                    ipm_form=form, solved_fraction=solved,
                    iters_max=int(iters.max()), launches=launches,
                    max_abs_diff_vs_f64_cpu_solved_lanes=diff)
-        if name == "pow3":
+        if name.startswith("pow3"):
             from cvxpylayers_tpu_torch.cones.projections import project_pow3
             proj = project_pow3(dev[0], 0.4)
             ok = status == 0
@@ -1289,10 +1429,10 @@ def small_layers_phase(ct, counters):
 
 def tf32_record(ct):
     """The package pins its own products to full f32: an SDP layer (the
-    Newton-Schulz inner loop, the exact polish, the PSD Jacobians) and the
-    SOC layer by the PCG mode give the same outputs with TF32 matmuls
-    allowed globally as without (within 1e-6; a TF32 product would move
-    them by ~1e-3)."""
+    Newton-Schulz inner loop, the exact polish, the PSD Jacobians), the
+    SOC layer by the PCG mode and by the IPM give the same outputs with
+    TF32 matmuls allowed globally as without (within 1e-6; a TF32 product
+    would move them by ~1e-3)."""
     r = np.random.default_rng(3)
     B = 256
     rec = {}
@@ -1301,6 +1441,10 @@ def tf32_record(ct):
          sdp_params(r, B, s=6), SDP_ARGS),
         ("soc_pcg", small_markowitz, markowitz_params(r, B, n=10, k=3),
          dict(MARKOWITZ_ARGS, kkt_mode="pcg")),
+        # the IPM's SOC blocks, its condensed KKT through K2 and the
+        # spectral polish
+        ("soc_ipm", small_markowitz, markowitz_params(r, B, n=10, k=3),
+         MARKOWITZ_IPM_ARGS),
     ):
         layer = build(ct, DEV)
         dev = to_dev(params, torch.float32)
@@ -1454,11 +1598,11 @@ def main():
     say(f"phase small: {time.perf_counter() - t0:.1f} s")
 
     # each kernel's launches on the main path of its slice and on every
-    # path a later slice added (the general-cone paths launch neither)
-    k1_launches = sum(launches[p]["K1"]
-                      for p in ("admm",) + RESCUE_PATHS + CONE_PATHS)
-    k2_launches = sum(launches[p]["K2"]
-                      for p in ("ipm",) + RESCUE_PATHS + CONE_PATHS)
+    # path a later slice added (the ADMM general-cone paths launch
+    # neither; the Markowitz IPM paths launch K2)
+    later = RESCUE_PATHS + CONE_PATHS + IPM_CONE_PATHS
+    k1_launches = sum(launches[p]["K1"] for p in ("admm",) + later)
+    k2_launches = sum(launches[p]["K2"] for p in ("ipm",) + later)
     kernels = [
         kernel_record(
             "admm_polyhedral_epoch",

@@ -81,19 +81,6 @@ def project_nonneg(v: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(v, 0.0)
 
 
-def require_polyhedral(dims: ConeDims, what: str) -> None:
-    """Raise for the cone families the interior-point method does not
-    carry yet (its cone blocks are a later slice of the port)."""
-    if not dims.is_polyhedral():
-        raise NotImplementedError(
-            f"{what}: the interior-point method's SOC, exponential, PSD "
-            "and power cone blocks arrive with the IPM cone-block later "
-            "port slice (general cones, part b); it carries zero and "
-            "nonneg cones only. solve_method='admm' (the default) takes "
-            "every cone"
-        )
-
-
 def project_soc(v: torch.Tensor) -> torch.Tensor:
     """Project (..., d) blocks (t, x) onto the second-order cone
     ||x|| <= t."""

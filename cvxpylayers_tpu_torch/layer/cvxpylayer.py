@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from ..canon.stuffer import ConeProgram, stuff
-from ..cones.projections import require_polyhedral, svec_to_sym
+from ..cones.projections import svec_to_sym
 from ..diff.derivative import make_diff_solver
 from ..expressions.constraints import DualVariable
 from ..expressions.leaf import Parameter, Variable
@@ -304,13 +304,9 @@ class CvxpyLayer:
         return len(self._outputs)
 
     def _check_route(self, settings: SolverSettings) -> None:
-        """Raise for the routes that later port slices bring: the sparse
-        assembly, and the interior-point method on a program with SOC,
-        exponential, PSD or power cones (a rescue stage with
-        solve_method="ipm" raises here too)."""
+        """Raise for the route that a later port slice brings: the sparse
+        assembly."""
         p = self.prog
-        if settings.solve_method == "ipm":
-            require_polyhedral(p.dims, "solve_method='ipm'")
         sparse = settings.assembly == "sparse" or (
             settings.assembly == "auto" and p.m
             and p.m * p.n > _DENSE_ASSEMBLY_LIMIT

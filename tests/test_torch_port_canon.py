@@ -159,12 +159,12 @@ def test_out_of_slice_features_raise():
     x = ct.Variable(3)
     p = ct.Parameter(3)
     soc = ct.Problem(ct.Minimize(ct.norm(x - p, 2)))
-    # a general-cone layer builds and solves by ADMM; the interior-point
-    # method's cone blocks are a later slice
+    # a general-cone layer builds and solves by ADMM and, since the
+    # interior-point method's cone blocks were ported, by the IPM too
     layer = ct.CvxpyLayer(soc, parameters=[p], variables=[x], device="cpu")
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        layer(torch.zeros(3, dtype=torch.float64),
-              solver_args={"solve_method": "ipm"})
+    v = torch.tensor([0.5, -1.0, 2.0], dtype=torch.float64)
+    (sol,) = layer(v, solver_args={"solve_method": "ipm"})
+    np.testing.assert_allclose(sol.numpy(), v.numpy(), atol=1e-6)
     with pytest.raises(NotImplementedError, match="later port slice"):
         ct.Problem(ct.Minimize(ct.sum_squares(x - p))).solve()
     with pytest.raises(NotImplementedError, match="later port slice"):

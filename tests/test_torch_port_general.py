@@ -440,13 +440,33 @@ def test_exp_and_pow_constraint_residuals_match_reference():
 
 
 def test_interior_point_on_general_cones_raises_naming_the_slice():
+    # the IPM's cone blocks are ported: the Markowitz call by the IPM (the
+    # self-dual embedding) matches the reference's, and so does its IPM
+    # rescue stage on the lanes a failing fast route hands it (lanes are
+    # independent, so each rescued lane is the direct call's)
+    vals = _markowitz_values()
+    ipm = {"solve_method": "ipm"}
+    lj = markowitz(cj)
+    outs_j, st_j, it_j = jax.jit(
+        lambda *p: lj.solve_with_info(*p, solver_args=ipm))(
+        *(jnp.asarray(a) for a in vals))
+    w_j, st_j, it_j = (np.asarray(a) for a in (outs_j[0], st_j, it_j))
     layer = markowitz(ct, device="cpu")
-    vals = _t(_markowitz_values())
-    with pytest.raises(NotImplementedError, match="IPM cone-block"):
-        layer(*vals, solver_args={"solve_method": "ipm"})
-    # and as a rescue stage, when the stage runs
-    with pytest.raises(NotImplementedError, match="IPM cone-block"):
-        ct.solve_with_rescue(layer, *vals,
-                             solver_args={"max_iters": 25, "epoch": 25,
-                                          "refine_steps": 0},
-                             rescue_args={"solve_method": "ipm"})
+    (w,), st, it = layer.solve_with_info(*_t(vals), solver_args=ipm)
+    np.testing.assert_array_equal(st.numpy(), st_j)
+    np.testing.assert_array_equal(it.numpy(), it_j)
+    assert (st_j == 0).all()
+    np.testing.assert_allclose(w.numpy(), w_j, atol=_ATOL)
+    fast = {"max_iters": 25, "epoch": 25, "refine_steps": 0}
+    (w_f,), st_f, it_f = layer.solve_with_info(*_t(vals), solver_args=fast)
+    failed = st_f.numpy() != 0
+    assert failed.any()
+    (w_r,), st_r, it_r = ct.solve_with_rescue(layer, *_t(vals),
+                                              solver_args=fast,
+                                              rescue_args=ipm)
+    np.testing.assert_array_equal(st_r.numpy()[failed], st_j[failed])
+    np.testing.assert_array_equal(it_r.numpy()[failed],
+                                  it_f.numpy()[failed] + it_j[failed])
+    np.testing.assert_allclose(w_r.numpy()[failed], w_j[failed], atol=_ATOL)
+    assert torch.equal(w_r[~torch.as_tensor(failed)],
+                       w_f[~torch.as_tensor(failed)])

@@ -302,8 +302,22 @@ def test_ipm_unported_routes_raise():
     with pytest.raises(ValueError, match="requires a problem with no quad"):
         make_diff_solver(TDims(nonneg=3), 2, st.replace(ipm_mode="hsde"),
                          p_zero=False)
-    with pytest.raises(NotImplementedError, match="zero and nonneg"):
-        t_ipm(TDims(nonneg=3, soc=(3,)), 2, st)
+    # the cone blocks are ported: an SOC program builds and solves. min
+    # 0.5|x|^2 + q'x over x >= -1, |x| <= 2 is the projection of -q onto
+    # that set: (0.5, -0.3) inside it, and (3, 0) onto the ball's (2, 0)
+    solve = t_ipm(TDims(nonneg=3, soc=(3,)), 2,
+                  st.replace(eps_abs=1e-9, eps_rel=1e-9))
+    A = torch.tensor([[-1.0, 0], [0, -1], [0, 0], [0, 0], [-1, 0], [0, -1]],
+                     dtype=torch.float64).expand(2, 6, 2)
+    b = torch.tensor([1.0, 1, 1, 2, 0, 0], dtype=torch.float64).expand(2, 6)
+    q = torch.tensor([[-0.5, 0.3], [-3.0, 0.0]], dtype=torch.float64)
+    r = solve(torch.eye(2, dtype=torch.float64).expand(2, 2, 2), q, A, b,
+              torch.zeros(2, 2, dtype=torch.float64),
+              *(torch.zeros(2, 6, dtype=torch.float64),) * 2)
+    assert r.status.tolist() == [SOLVED, SOLVED]
+    # the raw interior iterate sits ~sqrt(mu) from the active SOC boundary
+    np.testing.assert_allclose(r.x.numpy(), [[0.5, -0.3], [2.0, 0.0]],
+                               atol=1e-4)
     with pytest.raises(NotImplementedError, match="'admm'"):
         make_diff_solver(TDims(nonneg=3), 2,
                          st.replace(solve_method="pdhg"), p_zero=True)
