@@ -59,6 +59,17 @@ Phases (any failure exits non-zero before the result line):
              of its stages run on the card; and the same outputs with
              TF32 matmuls allowed globally as without (the package pins
              its own products)
+  6. sparse  bench.py's 64x64 transport LP (n=4096, 128 equality and
+             4096 nonneg rows, nnz(A)=12288, B=8) on the sparse route by
+             PDHG and by the matrix-free ADMM (K1 and K2 must stay at
+             0): solved fraction 1.0, every lane's objective within 1e-3
+             of HiGHS's, two PDHG calls on the same inputs bit for bit
+             equal, forward+backward, a device profile; the flagship
+             box-QP at B=1024 with derivative="forward" (K1 once a call,
+             the dot-product identity against the adjoint, 8 lanes'
+             JVPs against the f64 CPU JVP); at B=256 dense PDHG on the
+             box-LP, the "auto" assembly taking the sparse route, and
+             forward-mode JVPs by the IPM (K2) and on the sparse route
 
 Imports nothing of JAX or of cvxpylayers_tpu. The second-to-last lines
 are the card's name and power limit and the per-kernel JSON record; the
@@ -160,6 +171,21 @@ SM_FORCED_ARGS = dict(SM_ARGS, max_iters=100, refine_steps=0)
 # bench.py's sdp_trace row: Newton-Schulz PSD in the f32 inner loop,
 # exact eigh for statuses and the polish
 SDP_ARGS = dict(TUNED_ARGS, max_iters=1000, epoch=100, refine_steps=5)
+# bench.py's row 8, ot_common: a 64x64 transport LP on the sparse
+# (matrix-free) route at eps 1e-3; PDHG with its deeper internal target
+# and 60000-iteration cap, and the matrix-free ADMM
+OT_ARGS = {"assembly": "sparse", "eps_abs": 1e-3, "eps_rel": 1e-3,
+           "admm_eps_abs": 1e-3, "admm_eps_rel": 1e-3, "max_iters": 20000,
+           "epoch": 500, "refine_steps": 10}
+OT_PDHG_ARGS = dict(OT_ARGS, solve_method="pdhg", max_iters=60000,
+                    admm_eps_abs=1e-4, admm_eps_rel=1e-4)
+# a solved lane's objective against HiGHS's: within 1e-3 of the larger
+# of 1 and its size, the scale of the solver's own gap certificate at
+# eps 1e-3 (eps_abs + eps_rel |obj|). The plain relative error is
+# recorded: the optimal costs here are 0.03-0.25, and on these instances
+# the reference's own f32 solve (JAX on the CPU) is up to 9.1e-3 off in
+# relative terms on solved lanes (bench.py's 7e-4 is on its instances)
+OT_OBJ_TOL = 1e-3
 
 
 def ipm_args(args, **extra):
@@ -634,6 +660,45 @@ def pow3_layer(ct, device, alpha=0.4):
     return ct.CvxpyLayer(prob, parameters=[v], variables=[x], device=device)
 
 
+def ot_layer(ct, device, n_s=64, n_d=64):
+    """bench.py's optimal-transport LP: the plan P >= 0 between uniform
+    marginals under a cost C, min <C, P>. n = n_s n_d variables, n_s + n_d
+    equality rows, n nonneg rows, nnz(A) = 3n."""
+    C = ct.Parameter((n_s, n_d))
+    P = ct.Variable((n_s, n_d), nonneg=True)
+    prob = ct.Problem(
+        ct.Minimize(ct.sum(ct.multiply(C, P))),
+        [P @ ct.Constant(np.ones(n_d)) == ct.Constant(np.full(n_s, 1 / n_s)),
+         P.T @ ct.Constant(np.ones(n_s))
+         == ct.Constant(np.full(n_d, 1 / n_d))])
+    return ct.CvxpyLayer(prob, parameters=[C], variables=[P], device=device)
+
+
+def ot_params(r, B, n_s=64, n_d=64):
+    """Squared distances between seeded points on a line, as bench.py."""
+    xs = r.standard_normal((B, n_s))
+    ys = r.standard_normal((B, n_d))
+    return [(xs[:, :, None] - ys[:, None, :]) ** 2]
+
+
+def ot_linprog(C):
+    """HiGHS's optimal objective of each lane's transport LP (C (B, s, d))."""
+    from scipy.optimize import linprog
+
+    _, n_s, n_d = C.shape
+    A_eq = np.vstack([np.kron(np.eye(n_s), np.ones(n_d)),
+                      np.kron(np.ones(n_s), np.eye(n_d))])
+    b_eq = np.r_[np.full(n_s, 1 / n_s), np.full(n_d, 1 / n_d)]
+    out = []
+    for c in C:
+        res = linprog(c.ravel(), A_eq=A_eq, b_eq=b_eq, bounds=(0, None),
+                      method="highs")
+        if res.status != 0:
+            fail(f"linprog: {res.message}")
+        out.append(res.fun)
+    return np.array(out)
+
+
 def to_dev(arrs, dtype, device=None):
     return [torch.as_tensor(a, dtype=dtype, device=device or DEV)
             for a in arrs]
@@ -670,14 +735,15 @@ class Path:
     of its stacked factor [Lp'; B A_in], one per IPM iteration.
     `grad_floor`: the gradient phase takes each parameter's error over
     its own largest f64 gradient or over this fraction of the largest of
-    all parameters, whichever is larger."""
+    all parameters, whichever is larger. `grad_calls`: the gradient
+    phase's timed calls (default: one fewer than `calls`, at least 2)."""
 
     def __init__(self, name, layer, build, params, names, args, wants,
                  forbids, route, agree_lanes, weighted=False, B=1024,
                  rescue=None, forced=False, min_solved=0.99,
                  agree_solved_only=False, capacity=RESCUE_CAPACITY,
                  warm=False, stage_wants="K1", calls=4,
-                 k2_per_iteration=False, grad_floor=1e-3):
+                 k2_per_iteration=False, grad_floor=1e-3, grad_calls=None):
         self.name, self.layer, self.build = name, layer, build
         self.params, self.names, self.args = params, names, args
         self.wants, self.route = wants, route
@@ -691,6 +757,8 @@ class Path:
         self.stage_wants, self.calls = stage_wants, calls
         self.k2_per_iteration = k2_per_iteration
         self.grad_floor = grad_floor
+        self.grad_calls = (max(calls - 1, 2) if grad_calls is None
+                           else grad_calls)
 
     @property
     def ladder(self):
@@ -789,17 +857,19 @@ PATHS = {
                            B=512, min_solved=0.90, agree_solved_only=True,
                            calls=2),
     # bench.py's softmax_duals row with its two-stage ladder (deep polish,
-    # then PCG), capacity 24, warm
+    # then PCG), capacity 24, warm; one timed call and one timed gradient
+    # (depth: its calls take 15-35 s)
     "softmax_rescue": Path("softmax_rescue", "softmax", softmax_layer,
                            softmax_params, ["c"], SM_ARGS, None,
                            ("K1", "K2"), "shared", 16, weighted=True, B=512,
                            rescue=SM_LADDER, capacity=SM_CAPACITY, warm=True,
                            stage_wants=None, agree_solved_only=True,
-                           calls=2),
+                           calls=1, grad_calls=1),
     # bench.py's sdp_trace row: Newton-Schulz PSD in the f32 inner loop
     "sdp_trace": Path("sdp_trace", "sdp", sdp_layer, sdp_params, ["C"],
                       SDP_ARGS, None, ("K1", "K2"), "shared", 16,
-                      weighted=True, B=256, agree_solved_only=True, calls=2),
+                      weighted=True, B=256, agree_solved_only=True, calls=1,
+                      grad_calls=1),
     # the interior-point method's cone blocks. bench.py's markowitz_socp
     # in full: the fast route, then the IPM rescue of the failed lanes on
     # a sub-batch of 64, whose condensed f32 KKT goes through K2
@@ -867,7 +937,7 @@ def route_of(layer, args):
     from cvxpylayers_tpu_torch.layer.cvxpylayer import _settings_from_args
 
     st = _settings_from_args(layer._base_settings, args)
-    route = "shared" if layer._use_shared(st) else "dense"
+    route = "shared" if layer._use_shared(st) else layer._route(st)
     form = None
     if st.solve_method == "ipm":
         dims = layer.prog.dims
@@ -1225,7 +1295,7 @@ def gradient_phase(ct, counters, path, calls=None, B=None):
     that gradient is zero up to rounding and has no scale of its own."""
     r = np.random.default_rng(11)
     B = B or path.B
-    calls = max(path.calls - 1, 2) if calls is None else calls
+    calls = path.grad_calls if calls is None else calls
     layer = path.build(ct, DEV)
     log = StageLog(layer, counters) if path.rescue else None
     host = [path.params(r, B) for _ in range(calls + 1)]
@@ -1506,6 +1576,347 @@ def forced_ladder_record(ct, counters):
     return rec
 
 
+# ---------------------------------------------------- the sparse route
+
+
+# bench.py's two ot rows at their own width (B=8, 64x64); `calls` timed
+# calls after a warm-up. bench.py read solved 1.0 on its instances; on
+# these the reference's own f32 PDHG (JAX on the CPU) leaves one lane of
+# 8 unsolved after its polish in one of three calls (a knife-edge lane,
+# as bench.py's notes describe), and the port on the card one of 8 on
+# the second call; so a call fails below 7 of 8
+OT_PATHS = {
+    "ot_lp_pdhg": Path("ot_lp_pdhg", "ot64", ot_layer, ot_params, ["C"],
+                       OT_PDHG_ARGS, None, ("K1", "K2"), "sparse", 0,
+                       weighted=True, B=8, min_solved=0.875, calls=1),
+    "ot_lp_admm": Path("ot_lp_admm", "ot64", ot_layer, ot_params, ["C"],
+                       OT_ARGS, None, ("K1", "K2"), "sparse", 0,
+                       weighted=True, B=8, min_solved=0.875, calls=1),
+}
+# the path whose sparse reductions are checked for determinism: two calls
+# on the same inputs give bitwise-equal outputs and equal iterations
+OT_DETERMINISM = "ot_lp_pdhg"
+
+
+def ot_phase(ct, counters, path, calls=None, B=None):
+    """A transport LP path on the sparse route: `calls` timed calls with
+    fresh inputs after a warm-up, K1 and K2 counted from 0 and held at 0,
+    the solved fraction (at least the path's min_solved), every solved
+    lane's objective against HiGHS's (linprog) within OT_OBJ_TOL of the
+    larger of 1 and its size (every lane's plain relative error is
+    recorded), the iterations;
+    on OT_DETERMINISM a second call on the warm-up's inputs must give the
+    same outputs bit for bit and the same iterations; then one forward +
+    backward on fresh inputs (the gradient in C of a seeded weighting of
+    the plan, finite; the solver is warm from the calls before), and a
+    device profile of one call. Returns (record, launches)."""
+    B = B or path.B
+    calls = path.calls if calls is None else calls
+    layer = path.build(ct, DEV)
+    route, _ = route_of(layer, path.args)
+    if route != path.route:
+        fail(f"{path.name}: route {route}, expected {path.route}")
+    r = np.random.default_rng(0)
+    host = [path.params(r, B) for _ in range(calls + 1)]
+    inputs = [to_dev(h, torch.float32) for h in host]
+    sync()
+
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    times, solved, iters_max, iters_mean, outs = [], [], [], [], []
+    for i, params in enumerate(inputs):
+        t0 = time.perf_counter()
+        (X,), status, iters = layer.solve_with_info(*params,
+                                                    solver_args=path.args)
+        sync()
+        dt = (time.perf_counter() - t0) * 1e3
+        if i:
+            times.append(dt)
+        solved.append(float((status == 0).float().mean()))
+        iters_max.append(int(iters.max()))
+        iters_mean.append(float(iters.float().mean()))
+        outs.append((X, status, iters))
+    launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+    check_launches(f"{path.name} path", launches, path.wants, path.forbids)
+
+    # objectives against HiGHS, every lane of every call
+    rel, err_solved = [], []
+    for h, (X, status, _) in zip(host, outs):
+        if not bool(torch.isfinite(X).all()):
+            fail(f"{path.name}: non-finite plan")
+        obj = (X.double().cpu().numpy() * h[0]).sum(axis=(1, 2))
+        lp = ot_linprog(h[0])
+        rel.extend((np.abs(obj - lp) / np.abs(lp)).tolist())
+        ok = status.cpu().numpy() == 0
+        err_solved.extend((np.abs(obj - lp)
+                           / np.maximum(np.abs(lp), 1.0))[ok].tolist())
+
+    same = None
+    if path.name == OT_DETERMINISM:
+        (X2,), st2, it2 = layer.solve_with_info(*inputs[0],
+                                                solver_args=path.args)
+        sync()
+        X1, st1, it1 = outs[0]
+        same = bool(torch.equal(X1, X2) and torch.equal(st1, st2)
+                    and torch.equal(it1, it2))
+
+    # forward + backward: the gradient in C of a seeded weighting
+    w = to_dev([np.random.default_rng(12).standard_normal(
+        tuple(outs[0][0].shape))], torch.float32)[0]
+    (C,) = [t.requires_grad_() for t in
+            to_dev(path.params(r, B), torch.float32)]
+    sync()
+    t0 = time.perf_counter()
+    (X,), status, _ = layer.solve_with_info(C, solver_args=path.args)
+    (X * w).sum().backward()
+    sync()
+    g_ms = (time.perf_counter() - t0) * 1e3
+    if C.grad is None or not bool(torch.isfinite(C.grad).all()):
+        fail(f"gradient ({path.name}): no finite gradient in C")
+
+    total_us, count, top = device_profile(ct, path, layer, inputs[0])
+    n_, m_ = layer.prog.n, layer.prog.m
+    res = dict(
+        path=path.name, layer=path.layer, route=route, n=n_, m=m_,
+        nnz_A=int(layer.prog.A_rows.size), dims=str(layer.prog.dims), B=B,
+        dtype="float32", solver_args=path.args, calls=len(inputs),
+        solved_fraction_per_call=solved,
+        solved_fraction_min=min(solved),
+        iters_max_per_call=iters_max, iters_mean_per_call=iters_mean,
+        launches_before={k: 0 for k in counters}, launches_after=launches,
+        launches_per_call={k: v / len(inputs) for k, v in launches.items()},
+        median_ms_per_call=statistics.median(times), ms_per_call=times,
+        solves_per_s=B / statistics.median(times) * 1e3,
+        obj_rel_err_vs_linprog_max=max(rel), obj_rel_err_vs_linprog=rel,
+        obj_err_solved_lanes_max=max(err_solved),
+        deterministic_repeat=same,
+        fwd_bwd_ms=g_ms,
+        device_kernels=count, device_ms=total_us / 1e3,
+        device_top=[(round(us, 1), name[:60], n) for us, name, n in top])
+    say("ot", json.dumps(res))
+    if min(solved) < path.min_solved:
+        fail(f"{path.name}: solved fraction {min(solved)} < "
+             f"{path.min_solved}")
+    if max(err_solved) > OT_OBJ_TOL:
+        fail(f"{path.name}: a solved lane's objective is {max(err_solved):.3e}"
+             f" from linprog's (over max(1, |obj|)) > {OT_OBJ_TOL}")
+    if same is False:
+        fail(f"{path.name}: two calls on the same inputs differ (the "
+             "sparse route's reductions must be deterministic)")
+    return res, launches
+
+
+# ------------------------------------------------- forward-mode derivative
+
+
+def jvp_call(layer, params, tangents, args):
+    """(x, J t, status) of one forward-mode call."""
+    import torch.autograd.forward_ad as fwAD
+
+    with fwAD.dual_level():
+        duals = [fwAD.make_dual(p, t) for p, t in zip(params, tangents)]
+        (x,), status, _ = layer.solve_with_info(*duals, solver_args=args)
+        x, dx = fwAD.unpack_dual(x)
+    return x, dx, status
+
+
+def jvp_against_f64(ct, build, host, tangents, args, dx, status, k=8):
+    """Agreement of a forward-mode call's first k lanes (dx, status) with
+    the port's f64 CPU JVP of the same instances: (max abs difference
+    over the f64 JVP's largest entry, on the lanes solved on both, their
+    count)."""
+    _, dx64, st64 = jvp_call(
+        build(ct, "cpu"), to_dev([h[:k] for h in host], torch.float64, "cpu"),
+        to_dev([t[:k] for t in tangents], torch.float64, "cpu"), args)
+    both = (status[:k].cpu() == 0) & (st64 == 0)
+    if not bool(both.any()):
+        return None, 0
+    scale = max(float(dx64[both].abs().max()), 1e-12)
+    err = float((dx[:k].double().cpu() - dx64)[both].abs().max())
+    return err / scale, int(both.sum())
+
+
+# the flagship's settings with the Schur-CG steps at their default (20 at
+# n=50), as ipm_rescue's stage: with the row's 5 the f32 KKT solves are
+# inexact on a few lanes, the forward rule's as the adjoint's (on lane
+# 755 of these instances <g, J t> is -16.42 against -18.22 in f64, in
+# the reference's f32 JVP as in the port's, and <J'g, t> -18.02; CPU);
+# with 20 both are within 2e-7 of the f64 value
+JVP_ARGS = {k: v for k, v in BOX_QP_ARGS.items() if k != "schur_iters"}
+JVP_ARGS.update(solve_method="admm", derivative="forward")
+
+
+def box_qp_jvp_phase(ct, counters, B=1024, calls=2):
+    """The flagship box-QP (n=50, G 20x50, f32) with derivative="forward":
+    one forward-mode pass along a seeded tangent of every parameter a
+    call, K1 counted from 0 (once a call on the forward: one epoch);
+    the dot-product identity <g, J t> = <J'g, t> against the adjoint on
+    the same instances (per lane, over the batch's largest |<g, J t>|),
+    and the JVP of 8 lanes against the port's f64 CPU JVP, each failed
+    above 1e-2; ms per forward+JVP."""
+    layer = box_qp_layer(ct, DEV)
+    r = np.random.default_rng(21)
+    host = [box_qp_params(r, B) for _ in range(calls + 1)]
+    t_host = [r.standard_normal(a.shape) for a in host[0]]
+    tangents = to_dev(t_host, torch.float32)
+    inputs = [to_dev(h, torch.float32) for h in host]
+    sync()
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    times = []
+    first = None
+    for i, params in enumerate(inputs):
+        t0 = time.perf_counter()
+        out = jvp_call(layer, params, tangents, JVP_ARGS)
+        sync()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+        else:
+            first = out
+    launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+    check_launches("box_qp_jvp", launches, "K1", None)
+    if DEV == "cuda" and launches["K1"] != len(inputs):
+        fail(f"box_qp_jvp: K1 ran {launches['K1']} times in "
+             f"{len(inputs)} calls, expected once a call")
+    x, dx, status = first
+    if not bool(torch.isfinite(dx).all()):
+        fail("box_qp_jvp: non-finite tangent")
+
+    # the adjoint on the same instances: <J'g, t> per lane
+    g = to_dev([np.random.default_rng(22).standard_normal((B, 50))],
+               torch.float32)[0]
+    params = [p.clone().requires_grad_() for p in inputs[0]]
+    (xa,), st_a, _ = layer.solve_with_info(
+        *params, solver_args=dict(JVP_ARGS, derivative="adjoint"))
+    (xa * g).sum().backward()
+    lhs = (g * dx).sum(dim=1)
+    rhs = sum((p.grad * t).reshape(B, -1).sum(dim=1)
+              for p, t in zip(params, tangents))
+    ok = (status == 0) & (st_a == 0)
+    dot_scale = float(lhs[ok].abs().max())
+    dot_err = float((lhs - rhs)[ok].abs().max()) / dot_scale
+
+    f64_err, f64_lanes = jvp_against_f64(ct, box_qp_layer, host[0], t_host,
+                                         JVP_ARGS, dx, status)
+    res = dict(path="box_qp_jvp", layer="box_qp", B=B, dtype="float32",
+               solver_args=JVP_ARGS, calls=len(inputs),
+               solved_fraction=float((status == 0).float().mean()),
+               launches=launches,
+               launches_per_call={k: v / len(inputs)
+                                  for k, v in launches.items()},
+               fwd_jvp_median_ms=statistics.median(times),
+               fwd_jvp_ms=times,
+               dot_identity_rel_err=dot_err,
+               dot_identity_lanes=int(ok.sum()),
+               jvp_rel_err_vs_f64_cpu=f64_err,
+               jvp_lanes_compared=f64_lanes)
+    say("jvp", json.dumps(res))
+    if f64_err is None or f64_err > 1e-2:
+        fail(f"box_qp_jvp: JVP against the f64 CPU JVP {f64_err}")
+    if dot_err > 1e-2:
+        fail(f"box_qp_jvp: <g, J t> and <J'g, t> differ by {dot_err:.3e} "
+             "of the largest")
+    return res, launches
+
+
+def small_new_routes_phase(ct, counters):
+    """Small records at B=256 of the sparse route, PDHG and the forward-
+    mode rule: dense PDHG on the box-LP, the "auto" assembly taking the
+    sparse route on a simplex projection whose m n exceeds 2^16, and
+    forward-mode JVPs by the IPM (K2 on its path) and on the sparse
+    route, each against the port's f64 CPU run of its first 8 lanes:
+    outputs within 2e-3, the LP's objective within 2e-3 relative (two
+    eps-solutions of an LP may lie further apart than its objectives: on
+    the CPU one lane's f32 and f64 plans differ by 3.5e-3 where their
+    objectives differ by 5e-5), JVPs within 1e-2 of scale."""
+    r = np.random.default_rng(4)
+    B = 256
+    out = {}
+    box = box_qp_params(r, B)
+    simplex_v = simplex_params(r, B, n=300)
+    big_simplex = lambda ct_, dev: simplex_layer(ct_, dev, n=300)  # noqa
+    cones = ("K1", "K2")
+    # an LP's f32 polish runs CG on the normal equations: 200 steps, as
+    # the HSDE box-LP path (40 leave the plan ~1e-2 off the f64 one)
+    for name, build, params, args, wants, forbids, want_route in (
+        ("box_lp_pdhg", box_lp_layer, box,
+         dict(BOX_QP_ARGS, solve_method="pdhg", max_iters=4000, epoch=50,
+              cg_iters=200),
+         None, cones, "dense"),
+        ("simplex_auto_sparse", big_simplex, simplex_v, SIMPLEX_ARGS, None,
+         cones, "sparse"),
+    ):
+        layer = build(ct, DEV)
+        route, _ = route_of(layer, args)
+        if route != want_route:
+            fail(f"{name}: route {route}, expected {want_route}")
+        dev = to_dev(params, torch.float32)
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        (x,), status, iters = layer.solve_with_info(*dev, solver_args=args)
+        sync()
+        launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+        check_launches(name, launches, wants, forbids)
+        k = 8
+        (x64,), st64, _ = build(ct, "cpu").solve_with_info(
+            *to_dev([p[:k] for p in params], torch.float64, "cpu"),
+            solver_args=args)
+        both = (status[:k].cpu() == 0) & (st64 == 0)
+        if not bool(both.any()):
+            fail(f"{name}: no lane of the first {k} solved on both devices")
+        x32 = x[:k].double().cpu()
+        diff = float((x32 - x64).abs().max(dim=1).values[both].max())
+        rec = dict(layer=name, B=B, dtype="float32", route=route,
+                   solved_fraction=float((status == 0).float().mean()),
+                   iters_max=int(iters.max()), launches=launches,
+                   max_abs_diff_vs_f64_cpu_solved_lanes=diff)
+        if name == "box_lp_pdhg":
+            v = torch.as_tensor(params[0][:k])
+            obj, obj64 = (v * x32).sum(dim=1), (v * x64).sum(dim=1)
+            rec["obj_rel_diff_vs_f64_cpu_solved_lanes"] = float(
+                ((obj - obj64).abs() / obj64.abs().clamp_min(1.0))[both]
+                .max())
+        say("small", json.dumps(rec))
+        if not bool(torch.isfinite(x).all()):
+            fail(f"{name}: non-finite output")
+        worst = rec.get("obj_rel_diff_vs_f64_cpu_solved_lanes", diff)
+        if worst > 2e-3:
+            fail(f"{name}: f32 cuda vs f64 cpu {worst:.3e}")
+        out[name] = rec
+
+    tangents = [r.standard_normal(a.shape) for a in box]
+    for name, args, wants, forbids, want_route in (
+        ("box_qp_jvp_ipm", dict(JVP_ARGS, solve_method="ipm"), "K2", "K1",
+         "dense"),
+        ("box_qp_jvp_sparse", dict(JVP_ARGS, assembly="sparse"), None,
+         cones, "sparse"),
+    ):
+        layer = box_qp_layer(ct, DEV)
+        route, _ = route_of(layer, args)
+        if route != want_route:
+            fail(f"{name}: route {route}, expected {want_route}")
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        _, dx, status = jvp_call(layer, to_dev(box, torch.float32),
+                                 to_dev(tangents, torch.float32), args)
+        sync()
+        launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+        check_launches(name, launches, wants, forbids)
+        err, lanes = jvp_against_f64(ct, box_qp_layer, box, tangents, args,
+                                     dx, status)
+        rec = dict(layer=name, B=B, dtype="float32", route=route,
+                   solved_fraction=float((status == 0).float().mean()),
+                   launches=launches, jvp_rel_err_vs_f64_cpu=err,
+                   jvp_lanes_compared=lanes)
+        say("small", json.dumps(rec))
+        if not bool(torch.isfinite(dx).all()):
+            fail(f"{name}: non-finite tangent")
+        if err is None or err > 1e-2:
+            fail(f"{name}: JVP against the f64 CPU JVP {err}")
+        out[name] = rec
+    return out
+
+
 def kernel_record(name, source, replaces, launches, main, shapes):
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -1597,10 +2008,27 @@ def main():
     small_layers_phase(ct, counters)
     say(f"phase small: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 6. the sparse route and the forward-mode derivative, each path
+    # with its counts from 0
+    t0 = time.perf_counter()
+    for name, path in OT_PATHS.items():
+        t1 = time.perf_counter()
+        launches[name] = ot_phase(ct, counters, path)[1]
+        say(f"path {name}: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    launches["box_qp_jvp"] = box_qp_jvp_phase(ct, counters)[1]
+    say(f"path box_qp_jvp: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    small_new_routes_phase(ct, counters)
+    say(f"small new routes: {time.perf_counter() - t1:.1f} s")
+    say(f"phase sparse_jvp: {time.perf_counter() - t0:.1f} s")
+
     # each kernel's launches on the main path of its slice and on every
     # path a later slice added (the ADMM general-cone paths launch
-    # neither; the Markowitz IPM paths launch K2)
-    later = RESCUE_PATHS + CONE_PATHS + IPM_CONE_PATHS
+    # neither; the Markowitz IPM paths launch K2; box_qp_jvp launches K1,
+    # the OT paths neither)
+    later = (RESCUE_PATHS + CONE_PATHS + IPM_CONE_PATHS + tuple(OT_PATHS)
+             + ("box_qp_jvp",))
     k1_launches = sum(launches[p]["K1"] for p in ("admm",) + later)
     k2_launches = sum(launches[p]["K2"] for p in ("ipm",) + later)
     kernels = [

@@ -8,8 +8,11 @@ Counterpart of cvxpylayers_tpu/layer/cvxpylayer.py:
 
 The forward is parameter-affine data evaluation (one matmul or an
 index_add_), a dense scatter into batched (P, q, A, b), the batched
-solve (ADMM or the interior-point method, then the Newton polish), and
-slice/reshape recovery. Everything but the solve is plain differentiable
+solve (ADMM, the interior-point method or PDHG, then the Newton polish),
+and slice/reshape recovery. Above an m*n of 2^16 (or under
+`assembly="sparse"`) the data stay (B, nnz) value tensors of the
+stuffer's pattern and the matrix-free route solves them
+(solver/matfree.py). Everything but the solve is plain differentiable
 torch; the solve carries the implicit-function adjoint
 (diff/derivative.py). When P and A depend on no parameter, the default
 `shared_setup="auto"` takes the shared-factor route instead: only q and b
@@ -39,10 +42,11 @@ import torch
 
 from ..canon.stuffer import ConeProgram, stuff
 from ..cones.projections import svec_to_sym
-from ..diff.derivative import make_diff_solver
+from ..diff.derivative import make_diff_solver, make_matfree_diff_solver
 from ..expressions.constraints import DualVariable
 from ..expressions.leaf import Parameter, Variable
 from ..expressions.problem import Problem
+from ..solver.matfree import _DENSE_ASSEMBLY_LIMIT, SparseOps
 from ..solver.settings import (
     DUAL_INFEASIBLE,
     MAX_ITERS,
@@ -50,10 +54,6 @@ from ..solver.settings import (
     SolverSettings,
 )
 from ..utils.precision import full_f32
-
-# dense per-instance assembly above this m*n footprint takes the sparse
-# (matrix-free) route in the reference, which arrives with a later slice
-_DENSE_ASSEMBLY_LIMIT = 1 << 16
 
 
 class SolverError(RuntimeError):
@@ -294,6 +294,7 @@ class CvxpyLayer:
         self._shared_solvers: Dict[SolverSettings, object] = {}
         self._shared_consts: Dict[torch.dtype, tuple] = {}
         self._solvers: Dict[SolverSettings, object] = {}
+        self._sparse_ops: Optional[SparseOps] = None  # on first sparse solve
         # eager warm-start cache (warm_start=True): the last (x, y, s)
         self._warm: Optional[WarmStart] = None
 
@@ -303,30 +304,35 @@ class CvxpyLayer:
     def n_outputs(self) -> int:
         return len(self._outputs)
 
-    def _check_route(self, settings: SolverSettings) -> None:
-        """Raise for the route that a later port slice brings: the sparse
-        assembly."""
+    def _route(self, settings: SolverSettings) -> str:
+        """'dense' or 'sparse' per-instance data representation. Dense is
+        the faster at bench sizes (n ~ 50-150); sparse is the large-
+        instance route (O(nnz) matvecs, no dense (m, n) scatter, no
+        factorization: solver/matfree.py)."""
+        if settings.assembly != "auto":
+            return settings.assembly
         p = self.prog
-        sparse = settings.assembly == "sparse" or (
-            settings.assembly == "auto" and p.m
-            and p.m * p.n > _DENSE_ASSEMBLY_LIMIT
-        )
-        if sparse:
-            raise NotImplementedError(
-                "the sparse (matrix-free) assembly route arrives with a "
-                "later port slice"
-            )
+        if p.m and p.m * p.n > _DENSE_ASSEMBLY_LIMIT:
+            return "sparse"
+        return "dense"
+
+    def _ops(self) -> SparseOps:
+        if self._sparse_ops is None:
+            p = self.prog
+            self._sparse_ops = SparseOps(p.A_rows, p.A_cols, p.m, p.n,
+                                         p.P_rows, p.P_cols)
+        return self._sparse_ops
 
     def _use_shared(self, settings: SolverSettings) -> bool:
         """True when the constant-P/A shared-factor setup/solve split
-        applies (solver/shared.py). Only the dense assembly route exists
-        here (_check_route refuses the sparse one first)."""
+        applies (solver/shared.py): dense assembly only."""
         if settings.shared_setup == "off":
             return False
         applicable = (
             self._pa_constant
             and settings.solve_method == "admm"
             and settings.accel_lookback == 0
+            and self._route(settings) == "dense"
         )
         if settings.shared_setup == "on" and not applicable:
             raise ValueError(
@@ -348,12 +354,18 @@ class CvxpyLayer:
 
     def _solver(self, settings: SolverSettings):
         if settings not in self._solvers:
-            self._solvers[settings] = make_diff_solver(
-                self.prog.dims, self.prog.n, settings,
-                p_diag_full=self._p_diag_full,
-                p_diag_only=self._p_diag_only,
-                p_zero=self.prog.P_rows.size == 0,
-            )
+            if self._route(settings) == "sparse":
+                self._solvers[settings] = make_matfree_diff_solver(
+                    self._ops(), self.prog.dims, self.prog.n, settings,
+                    p_diag_only=self._p_diag_only,
+                )
+            else:
+                self._solvers[settings] = make_diff_solver(
+                    self.prog.dims, self.prog.n, settings,
+                    p_diag_full=self._p_diag_full,
+                    p_diag_only=self._p_diag_only,
+                    p_zero=self.prog.P_rows.size == 0,
+                )
         return self._solvers[settings]
 
     # ------------------------------------------------------------- batching
@@ -437,6 +449,16 @@ class CvxpyLayer:
         if prog.P_rows.size:
             P = 0.5 * (P + P.mT)
         return P.contiguous(), q, A.view(B, m, n), b, offset
+
+    def _assemble_sparse(self, p_ext: torch.Tensor):
+        """p_ext (B, n_param+1) -> (P_data, q, A_data, b, offset): the
+        static-pattern value tensors of solver/matfree.py, with no dense
+        (m, n) or (n, n) scatter, so the per-instance footprint is
+        O(nnz)."""
+        q, b, offset = self._assemble_qb(p_ext)
+        P_data = (self._apply_P(p_ext) if self.prog.P_rows.size
+                  else p_ext.new_zeros(p_ext.shape[0], 0))
+        return P_data, q, self._apply_A(p_ext), b, offset
 
     def _assemble_qb(self, p_ext: torch.Tensor):
         """p_ext (B, n_param+1) -> (q, b, offset) only: the shared
@@ -533,7 +555,6 @@ class CvxpyLayer:
 
     def _solve(self, params, solver_args, warm_start):
         settings = _settings_from_args(self._base_settings, solver_args)
-        self._check_route(settings)
         prog = self.prog
         batch, batched_flags = self._parse_batch(params)
         p_ext = self._stack_params(params, batch, batched_flags)
@@ -567,7 +588,10 @@ class CvxpyLayer:
         def run():
             if self._use_shared(settings):
                 return self._solve_shared(settings, p_ext, x0, y0, s0)
-            P, q, A, b, _ = self._assemble(p_ext)
+            assemble = (self._assemble_sparse
+                        if self._route(settings) == "sparse"
+                        else self._assemble)
+            P, q, A, b, _ = assemble(p_ext)
             return self._solver(settings)(P, q, A, b, x0, y0, s0)
 
         if settings.matmul_precision != "default":
@@ -598,8 +622,9 @@ class CvxpyLayer:
         return outs, next_ws, st, it
 
     def _maybe_raise(self, status):
-        """Raise SolverError on failure (one host read of the statuses)."""
-        st = status.cpu().numpy()
+        """Raise SolverError on failure (one host read of the statuses;
+        tolist also reads a status that torch.func.jvp has wrapped)."""
+        st = np.asarray(status.tolist())
         if np.any(st == PRIMAL_INFEASIBLE):
             raise SolverError("Problem is primal infeasible.")
         if np.any(st == DUAL_INFEASIBLE):

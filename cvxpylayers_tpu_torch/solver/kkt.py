@@ -86,19 +86,42 @@ def _trace(M: torch.Tensor) -> torch.Tensor:
     return torch.diagonal(M, dim1=-2, dim2=-1).sum(-1)
 
 
-def _spd_inv(M: torch.Tensor) -> torch.Tensor:
-    """Explicit inverses of a batch of f32 SPD matrices: the masked
-    Cholesky loop of the reference at its sizes (a clamped pivot, never
-    NaN), the library Cholesky and a triangular solve above them (NaN on
-    a lane whose factor fails, as the reference's)."""
-    dim = M.shape[-1]
-    if use_masked(dim):
-        return spd_inv_via_chol(M)
-    eye = torch.eye(dim, dtype=M.dtype, device=M.device)
+def _chol_inv(M: torch.Tensor) -> torch.Tensor:
+    """L^{-1} for the lower Cholesky factors L of a batch of SPD matrices,
+    NaN on a lane whose factor fails (the reference's factor gives NaN
+    there)."""
     L, info = torch.linalg.cholesky_ex(M)
-    Li = torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
-    Minv = torch.bmm(Li.mT, Li)
-    return torch.where((info == 0)[:, None, None], Minv, torch.nan)
+    L = torch.where((info == 0)[:, None, None], L, torch.nan)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    return torch.linalg.solve_triangular(L, eye.expand_as(L), upper=False)
+
+
+def _spd_inv(M: torch.Tensor) -> torch.Tensor:
+    """Explicit inverses of a batch of SPD matrices: the masked Cholesky
+    loop of the reference at its f32 sizes (a clamped pivot, never NaN),
+    else L^{-T} L^{-1} from the library Cholesky."""
+    if use_masked(M.shape[-1]) and M.dtype != torch.float64:
+        return spd_inv_via_chol(M)
+    Li = _chol_inv(M)
+    return torch.bmm(Li.mT, Li)
+
+
+def _spd_solver(S: torch.Tensor):
+    """S_solve(r) -> S^{-1} r for a batch of SPD matrices. At the
+    reference's f32 sizes its masked explicit inverse. In f64 and above
+    MASKED_MAX_DIM the reference applies its Cholesky factor by two
+    triangular solves, because an explicit f32 S^{-1} carries a backward
+    error about cond(S) times larger; here the two triangular factors of
+    S^{-1} = L^{-T} L^{-1} are applied in turn, as matvecs, which keeps
+    the triangular solves' accuracy (tests/test_torch_port_forward.py)
+    without their cost on the card: with two batched triangular solves an
+    apply, bench.py's n=500 Markowitz row issued 65.8k device kernels a
+    call instead of 30.0k and took 846 ms instead of 527 (H100)."""
+    if use_masked(S.shape[-1]) and S.dtype != torch.float64:
+        Sinv = spd_inv_via_chol(S)
+        return lambda r: bmv(Sinv, r)
+    Li = _chol_inv(S)
+    return lambda r: bmv_t(Li, bmv(Li, r))
 
 
 def make_kkt_precond(dims: ConeDims, n: int):
@@ -266,13 +289,13 @@ def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
             # rounding is ~eps*||H||
             s_floor = 1e-6 * (_trace(H) / m) + 1e-7
             S = H + torch.diag_embed(Dp + msk_el + s_floor[:, None] * msk_n)
-            Sinv = _spd_inv(S)
-        return Q, G, GM, Minv, Sinv, msk_el, msk_n, lam_e, one_m, C
+            S_solve = _spd_solver(S)
+        return Q, G, GM, Minv, S_solve, msk_el, msk_n, lam_e, one_m, C
 
     def solve_spectral(fac, rhs, transpose):
         """Exact spectral-Schur solve of J d = rhs (or J' d = rhs) from
         factor_spectral's state."""
-        Q, G, GM, Minv, Sinv, msk_el, msk_n, lam_e, one_m, C = fac
+        Q, G, GM, Minv, S_solve, msk_el, msk_n, lam_e, one_m, C = fac
         r1 = rhs[:, :n]
         with full_f32():
             s2 = bmv_t(Q, rhs[:, n:])
@@ -280,7 +303,7 @@ def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
                 # M v1 - G_N' z'_N = rhat,  (H + Dp) z' = s2_N - G_N Minv
                 # rhat with z'_N = (1-lam) z_N
                 rhat = r1 + bmv_t(G, C * s2)
-                zp = bmv(Sinv, msk_n * (s2 - bmv(GM, rhat)))
+                zp = S_solve(msk_n * (s2 - bmv(GM, rhat)))
                 v1 = bmv(Minv, rhat + bmv_t(G, msk_n * zp))
                 z = (msk_el * (s2 - bmv(G, v1)) / lam_e
                      + msk_n * zp / one_m)
@@ -288,7 +311,7 @@ def make_kkt_solver(dims: ConeDims, n: int, cg_iters: int = 40,
                 # M v1 + G_N' z_N = rhat,
                 # (H + Dp) z_N = (1-lam)^{-1} s2_N + G_N Minv rhat
                 rhat = r1 - bmv_t(G, msk_el * s2 / lam_e)
-                zn = bmv(Sinv, msk_n * (s2 / one_m + bmv(GM, rhat)))
+                zn = S_solve(msk_n * (s2 / one_m + bmv(GM, rhat)))
                 v1 = bmv(Minv, rhat - bmv_t(G, msk_n * zn))
                 z = (msk_el * (s2 / lam_e + C * bmv(G, v1))
                      + msk_n * zn)

@@ -1,8 +1,9 @@
 """Batched conjugate-gradient solves for the KKT systems.
 
 Counterpart of cvxpylayers_tpu/solver/linsolve.py (`_cg_normal`,
-`_cg_spd_from`, `_cg_spd`). Vectors are (B, d); every step size and guard
-is per lane, so one lane's breakdown never touches another lane.
+`_cg_spd_from`, `_cg_spd`, `_cg_spd_warm`). Vectors are (B, d); every
+step size and guard is per lane, so one lane's breakdown never touches
+another lane.
 """
 
 from __future__ import annotations
@@ -60,3 +61,10 @@ def _cg_spd_from(matvec, x0, r0, iters: int):
 def _cg_spd(matvec, rhs, iters: int):
     """Plain CG from zero."""
     return _cg_spd_from(matvec, torch.zeros_like(rhs), rhs, iters)
+
+
+def _cg_spd_warm(matvec, rhs, x0, iters: int):
+    """CG warm-started at x0: the matrix-free ADMM x-update, where
+    consecutive right-hand sides differ by O(step) and the previous
+    solution is an excellent first iterate."""
+    return _cg_spd_from(matvec, x0, rhs - matvec(x0), iters)

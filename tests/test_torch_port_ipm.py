@@ -23,8 +23,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from cvxpylayers_tpu.cones.dims import ConeDims as JDims
+from cvxpylayers_tpu.diff.derivative import make_diff_solver as j_make_diff_solver
 from cvxpylayers_tpu.solver.batched_linalg import house_qr_r as j_house_qr_r
 from cvxpylayers_tpu.solver.ipm import make_ipm_solver as j_ipm
 from cvxpylayers_tpu.solver.pallas_linalg import qr_r_pallas
@@ -318,12 +320,37 @@ def test_ipm_unported_routes_raise():
     # the raw interior iterate sits ~sqrt(mu) from the active SOC boundary
     np.testing.assert_allclose(r.x.numpy(), [[0.5, -0.3], [2.0, 0.0]],
                                atol=1e-4)
-    with pytest.raises(NotImplementedError, match="'admm'"):
-        make_diff_solver(TDims(nonneg=3), 2,
-                         st.replace(solve_method="pdhg"), p_zero=True)
-    with pytest.raises(NotImplementedError, match="derivative='adjoint'"):
-        make_diff_solver(TDims(nonneg=3), 2,
-                         st.replace(derivative="forward"))
+    # PDHG and the forward-mode rule are ported: PDHG builds on a problem
+    # without a quadratic objective and refuses one with it, as the
+    # reference does
+    make_diff_solver(TDims(nonneg=3), 2, st.replace(solve_method="pdhg"),
+                     p_zero=True)
+    for make in (make_diff_solver, j_make_diff_solver):
+        dims = (TDims if make is make_diff_solver else JDims)(nonneg=3)
+        sset = (TSettings if make is make_diff_solver else JSettings)(
+            solve_method="pdhg")
+        with pytest.raises(ValueError, match="no quadratic objective"):
+            make(dims, 2, sset, p_zero=False)
+    # derivative="forward" through the IPM: min 0.5|x|^2 + q'x over
+    # x >= -1 is x = max(-q, -1), so along dq the tangent is -dq on the
+    # free coordinate and 0 on the one at its bound
+    solve = make_diff_solver(TDims(nonneg=3), 2,
+                             st.replace(derivative="forward", eps_abs=1e-9,
+                                        eps_rel=1e-9))
+    A = torch.tensor([[-1.0, 0], [0, -1], [0, 0]],
+                     dtype=torch.float64).expand(1, 3, 2)
+    b = torch.tensor([[1.0, 1, 1]], dtype=torch.float64)
+    q = torch.tensor([[-0.5, 3.0]], dtype=torch.float64)
+    with fwAD.dual_level():
+        x, _, _, status, _ = solve(
+            torch.eye(2, dtype=torch.float64).expand(1, 2, 2),
+            fwAD.make_dual(q, torch.ones_like(q)), A, b,
+            torch.zeros(1, 2, dtype=torch.float64),
+            *(torch.zeros(1, 3, dtype=torch.float64),) * 2)
+        x, dx = fwAD.unpack_dual(x)
+    assert status.tolist() == [SOLVED]
+    np.testing.assert_allclose(x.numpy(), [[0.5, -1.0]], atol=1e-8)
+    np.testing.assert_allclose(dx.numpy(), [[-1.0, 0.0]], atol=1e-8)
 
 
 @pytest.mark.parametrize("lp", [False, True], ids=["qp", "lp"])

@@ -204,8 +204,12 @@ def test_device_and_gradient_contracts(monkeypatch):
     assert bool(torch.isfinite(v.grad).all())
     with pytest.raises(TypeError, match="torch.Tensor"):
         layer(np.zeros(8), G[0], h[0])
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        layer(v.detach(), G, h, solver_args={"assembly": "sparse"})
+    # the sparse (matrix-free) route is ported: the same solution, with
+    # a gradient at the nnz positions of the data pattern
+    (xs, _), status, _ = layer.solve_with_info(
+        v.detach(), G, h, solver_args={"assembly": "sparse"})
+    assert (status == 0).all()
+    np.testing.assert_allclose(xs.numpy(), x.detach().numpy(), atol=_ATOL)
 
 
 _ROUTE_CASES = {
@@ -241,10 +245,15 @@ def test_solver_args_are_checked():
     v = torch.as_tensor(np.random.default_rng(11).standard_normal(6))
     with pytest.raises(ValueError, match="unknown solver_args key"):
         layer(v, solver_args={"no_such_option": 1})
-    with pytest.raises(NotImplementedError, match="'admm'"):
-        layer(v, solver_args={"solve_method": "pdhg"})
-    with pytest.raises(NotImplementedError, match="derivative='adjoint'"):
-        layer(v, solver_args={"derivative": "forward"})
+    # PDHG refuses a quadratic objective, as in the reference; the
+    # forward-mode rule solves the same problem
+    for mod, lay in ((ct, layer), (cj, simplex(cj))):
+        with pytest.raises(ValueError, match="no quadratic objective"):
+            lay(v.numpy() if mod is cj else v,
+                solver_args={"solve_method": "pdhg"})
+    np.testing.assert_allclose(
+        layer(v, solver_args={"derivative": "forward"})[0].numpy(),
+        layer(v)[0].numpy(), atol=_ATOL)
     # arguments given at construction are the defaults of every call, and
     # a call's own arguments override them
     strict = simplex(ct, device="cpu", solver_args={"max_iters": 1,
