@@ -70,6 +70,18 @@ Phases (any failure exits non-zero before the result line):
              JVPs against the f64 CPU JVP); at B=256 dense PDHG on the
              box-LP, the "auto" assembly taking the sparse route, and
              forward-mode JVPs by the IPM (K2) and on the sparse route
+  7. gp      bench.py's GP row through gp=True at full width (B=1024,
+             f32, bench.py's settings; K1 and K2 must stay at 0): solved
+             fraction, ms per call, 8 lanes against the f64 CPU run, a
+             device profile, forward+backward against the f64 CPU
+             gradients; cone duals at B=256 in their shapes (the SOC
+             parts of the Markowitz risk budget, the 16x16 PSD dual of
+             the spectahedron, the exp-cone parts of the softmax), each
+             with the gradient through one part, against f64 CPU;
+             Problem.solve with the default device (an LP against
+             linprog, a cached re-solve, the GP, an infeasible and an
+             unbounded problem); a layer of structured atoms
+             (sum_largest, norm_nuc, lambda_sum_largest) at B=256
 
 Imports nothing of JAX or of cvxpylayers_tpu. The second-to-last lines
 are the card's name and power limit and the per-kernel JSON record; the
@@ -1917,6 +1929,269 @@ def small_new_routes_phase(ct, counters):
     return out
 
 
+# ------------------------------- geometric programs, duals, plain solve
+
+
+def gp_layer(ct, device):
+    """bench.py's GP row (the reference's test_basic_gp problem): min
+    1/(xyz) s.t. a(xy + xz + yz) <= b, x >= y^c, solved in log space
+    (gp=True): 4 nonneg rows and 4 exponential cones, c multiplies a
+    variable, so the route is the dense per-instance one."""
+    x, y, z = (ct.Variable((), pos=True) for _ in range(3))
+    a = ct.Parameter((), pos=True)
+    b = ct.Parameter((), pos=True)
+    c = ct.Parameter(())
+    prob = ct.Problem(ct.Minimize(1.0 / (x * y * z)),
+                      [a * (x * y + x * z + y * z) <= b, x >= y ** c])
+    return ct.CvxpyLayer(prob, parameters=[a, b, c], variables=[x, y, z],
+                         gp=True, device=device)
+
+
+def gp_params(r, B):
+    """bench.py's draws: |N| + 1, |N| + 3, U(0.3, 0.9)."""
+    return [np.abs(r.standard_normal(B)) + 1.0,
+            np.abs(r.standard_normal(B)) + 3.0, r.uniform(0.3, 0.9, B)]
+
+
+# bench.py's row 5 settings: _tuned_args with 300 iterations in epochs of
+# 100 and 15 CG steps
+GP_ARGS = dict(TUNED_ARGS, max_iters=300, epoch=100, cg_iters=15)
+GP_PATHS = {
+    # a general-cone program: K1 (polyhedral only) and K2 (IPM) stay at 0
+    "gp": Path("gp", "gp", gp_layer, gp_params, "abc", GP_ARGS, None,
+               ("K1", "K2"), "dense", 8, weighted=True, B=1024, calls=2),
+}
+# its gradient, with the f32 KKT solves' CG steps at their default 40: at
+# bench.py's 15 the adjoint's CG stops short and the f32 gradients sit up
+# to 8 % off the f64 ones (the port on the CPU, B=32); at 40, 3e-7
+GP_GRAD_PATHS = {
+    "gp": Path("gp", "gp", gp_layer, gp_params, "abc",
+               dict(GP_ARGS, cg_iters=40), None, ("K1", "K2"), "dense", 8,
+               weighted=True, B=1024, calls=2),
+}
+
+
+def markowitz_soc_layer(ct, device, n=50, k=10):
+    """bench.py's Markowitz risk budget as an explicit SOC constraint
+    (0.25, F w), returning w and both parts of the constraint's dual: the
+    scalar t-part (B,) and the F w-shaped part (B, k)."""
+    w = ct.Variable(n, nonneg=True)
+    mu = ct.Parameter(n)
+    F = ct.Parameter((k, n))
+    risk = ct.SOC(ct.Constant(0.25), F @ w)
+    prob = ct.Problem(ct.Maximize(mu @ w), [risk, ct.sum(w) == 1])
+    return ct.CvxpyLayer(prob, parameters=[mu, F],
+                         variables=[w] + list(risk.dual_variables),
+                         device=device)
+
+
+def sdp_dual_layer(ct, device, s=16):
+    """bench.py's spectahedron SDP with X >> 0 as a constraint on a
+    symmetric variable (bench.py's PSD=True variable carries the cone
+    implicitly), returning X and the constraint's dual as an (s, s)
+    matrix."""
+    X = ct.Variable((s, s), symmetric=True)
+    C = ct.Parameter((s, s))
+    psd = X >> 0
+    prob = ct.Problem(ct.Minimize(ct.trace(C @ X)),
+                      [psd, ct.trace(X) == 1])
+    return ct.CvxpyLayer(prob, parameters=[C],
+                         variables=[X, psd.dual_variables[0]], device=device)
+
+
+def softmax_exp_layer(ct, device, n=32):
+    """bench.py's entropy softmax with its exponential cones written out:
+    t_i <= -y_i log y_i as (t, y, 1) in K_exp, returning y and the three
+    parts of the cone's dual, each (B, n)."""
+    y = ct.Variable(n, nonneg=True)
+    t = ct.Variable(n)
+    c = ct.Parameter(n)
+    cone = ct.ExpCone(t, y, ct.Constant(np.ones(n)))
+    prob = ct.Problem(ct.Maximize(c @ y + ct.sum(t)), [ct.sum(y) == 1, cone])
+    return ct.CvxpyLayer(prob, parameters=[c],
+                         variables=[y] + list(cone.dual_variables),
+                         device=device)
+
+
+def structured_layer(ct, device):
+    """sum_largest (an LP epigraph), norm_nuc and lambda_sum_largest (PSD
+    epigraphs) in one prox layer (tests/test_torch_port_structured.py)."""
+    v = ct.Parameter(8)
+    M = ct.Parameter((4, 3))
+    S = ct.Parameter((4, 4))
+    x = ct.Variable(8)
+    X = ct.Variable((4, 3))
+    Y = ct.Variable((4, 4))
+    prob = ct.Problem(ct.Minimize(
+        ct.sum_squares(x - v) + ct.sum_squares(X - M)
+        + ct.sum_squares(Y - S) + ct.sum_largest(x, 3)
+        + ct.norm_nuc(X) + ct.lambda_sum_largest(Y, 2)))
+    return ct.CvxpyLayer(prob, parameters=[v, M, S], variables=[x, X, Y],
+                         device=device)
+
+
+def structured_params(r, B):
+    S = r.standard_normal((B, 4, 4))
+    return [r.standard_normal((B, 8)), r.standard_normal((B, 4, 3)),
+            0.5 * (S + S.transpose(0, 2, 1))]
+
+
+# (name, layer, parameters, solver_args, the output whose gradient is
+# checked, the shapes of the dual outputs without the batch axis)
+DUAL_LAYERS = (
+    ("markowitz_soc_duals", markowitz_soc_layer,
+     lambda r, B: markowitz_params(r, B), MARKOWITZ_ARGS, 2,
+     [(), (10,)]),
+    ("sdp_psd_dual", sdp_dual_layer, lambda r, B: sdp_params(r, B),
+     SDP_ARGS, 1, [(16, 16)]),
+    ("softmax_exp_duals", softmax_exp_layer,
+     lambda r, B: softmax_params(r, B), SM_ARGS, 3, [(32,)] * 3),
+)
+STRUCTURED_ARGS = dict(TUNED_ARGS, max_iters=1000, epoch=100,
+                       refine_steps=10)
+
+
+def layer_against_f64(ct, counters, name, build, params, args, grad_out,
+                      dual_shapes=None, k=8, B=256):
+    """One layer at B on the card in f32 against the port's f64 CPU run
+    of its first k lanes: every output's shape (the duals' as given), the
+    solved lanes' outputs within 2e-3 of the largest f64 output of each,
+    and the gradient of a seeded weighting of output `grad_out` alone (of
+    every output when it is None) within 1e-2 of the largest f64
+    gradient (each parameter's error over
+    its own largest, or over 1e-3 of all where that is larger). K1 and K2
+    are counted from 0 and must stay there."""
+    host = params(np.random.default_rng(6), B)
+    layer = build(ct, DEV)
+    dev = [t.requires_grad_() for t in to_dev(host, torch.float32)]
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    sync()
+    t0 = time.perf_counter()
+    outs, status, iters = layer.solve_with_info(*dev, solver_args=args)
+    weighed = range(len(outs)) if grad_out is None else [grad_out]
+    w_rng = np.random.default_rng(13)
+    ws = {i: w_rng.standard_normal(tuple(outs[i].shape)) for i in weighed}
+    sum((outs[i] * to_dev([w], torch.float32)[0]).sum()
+        for i, w in ws.items()).backward()
+    sync()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = {k_: mod.LAUNCHES for k_, mod in counters.items()}
+    check_launches(name, launches, None, ("K1", "K2"))
+    if dual_shapes is not None:
+        got = [tuple(o.shape[1:]) for o in outs[len(outs)
+                                                - len(dual_shapes):]]
+        if got != [tuple(s) for s in dual_shapes]:
+            fail(f"{name}: dual shapes {got}, expected {dual_shapes}")
+    cpu = [t.requires_grad_() for t in
+           to_dev([h[:k] for h in host], torch.float64, "cpu")]
+    outs64, st64, _ = build(ct, "cpu").solve_with_info(*cpu,
+                                                        solver_args=args)
+    sum((outs64[i] * torch.as_tensor(w[:k])).sum()
+        for i, w in ws.items()).backward()
+    both = (status[:k].cpu() == 0) & (st64 == 0)
+    if not bool(both.any()):
+        fail(f"{name}: no lane of the first {k} solved on both devices")
+    out_err = [float((o[:k].detach().double().cpu() - o64.detach())
+                     .reshape(k, -1)[both].abs().max()
+                     / max(float(o64.detach().abs().max()), 1e-3))
+               for o, o64 in zip(outs, outs64)]
+    overall = max(float(q.grad[both].abs().max()) for q in cpu)
+    grad_err = [float((p.grad[:k].double().cpu() - q.grad)[both].abs().max()
+                      / max(float(q.grad[both].abs().max()),
+                            1e-3 * overall))
+                for p, q in zip(dev, cpu)]
+    rec = dict(layer=name, B=B, dtype="float32", n=layer.prog.n,
+               m=layer.prog.m, dims=str(layer.prog.dims),
+               route=route_of(layer, args)[0],
+               solved_fraction=float((status == 0).float().mean()),
+               iters_max=int(iters.max()), launches=launches,
+               output_shapes=[list(o.shape) for o in outs],
+               lanes_solved_on_both=int(both.sum()),
+               out_rel_err_vs_f64_cpu=out_err, grad_output=grad_out,
+               grad_rel_err_vs_f64_cpu=grad_err, fwd_bwd_ms=ms)
+    say("phase7", json.dumps(rec))
+    for o in outs:
+        if not bool(torch.isfinite(o[status == 0]).all()):
+            fail(f"{name}: non-finite output on a solved lane")
+    if max(out_err) > 2e-3:
+        fail(f"{name}: f32 cuda vs f64 cpu output error {max(out_err):.3e}")
+    if max(grad_err) > 1e-2:
+        fail(f"{name}: f32 cuda vs f64 cpu gradient error "
+             f"{max(grad_err):.3e}")
+    return rec, launches
+
+
+def plain_solve_phase(ct, counters):
+    """Problem.solve with the default device (the card): the LP of
+    tests/test_problem_solve.py against scipy's linprog, a cached re-solve
+    after a new Parameter.value that builds no second layer, the GP of
+    that file against the port's f64 CPU value, and an infeasible and an
+    unbounded problem (their status strings and infinite values). The
+    parameters' values are float64, so the card solves in f64. A
+    rehearsal without a card (DEV "cpu") passes the CPU explicitly."""
+    from scipy.optimize import linprog
+
+    device = None if DEV == "cuda" else DEV
+    r = np.random.default_rng(11)
+    for mod in counters.values():
+        mod.LAUNCHES = 0
+    rec = {}
+    x = ct.Variable(4)
+    c = ct.Parameter(4)
+    lp = ct.Problem(ct.Minimize(c @ x), [x >= -1, x <= 1])
+    for key in ("lp", "lp_resolve"):
+        c.value = r.standard_normal(4)
+        val = lp.solve(device=device)
+        ref = linprog(c.value, bounds=[(-1, 1)] * 4, method="highs")
+        (layer_key, (layer, _, _)), = lp._solve_layers.items()
+        if key == "lp":
+            first = layer
+        rec[key] = dict(value=val, linprog=ref.fun, status=lp.status,
+                        x_err=float(np.abs(x.value - ref.x).max()),
+                        num_iters=lp.solver_stats.num_iters,
+                        solve_time_ms=lp.solver_stats.solve_time * 1e3,
+                        layer_device=str(layer.device))
+        if layer.device.type != DEV or layer_key[1].type != DEV:
+            fail(f"plain solve: the layer is on {layer.device}")
+        if lp.status != "optimal" or abs(val - ref.fun) > 1e-6 \
+                or rec[key]["x_err"] > 1e-6:
+            fail(f"plain solve ({key}): {rec[key]}")
+    if len(lp._solve_layers) != 1 or layer is not first:
+        fail("plain solve: the re-solve built a second layer")
+
+    def gp_problem():
+        xg = ct.Variable((), pos=True)
+        yg = ct.Variable((), pos=True)
+        return ct.Problem(ct.Minimize(xg * yg + 1.0 / (xg * yg)),
+                          [xg * yg <= 2.0, xg >= 0.5])
+
+    gp = gp_problem()
+    val = gp.solve(gp=True, device=device)
+    val64 = gp_problem().solve(gp=True, device="cpu")
+    rec["gp"] = dict(value=val, f64_cpu_value=val64, status=gp.status,
+                     num_iters=gp.solver_stats.num_iters,
+                     solve_time_ms=gp.solver_stats.solve_time * 1e3)
+    if gp.status != "optimal" or abs(val - val64) > 1e-6 \
+            or abs(val - 2.0) > 1e-6:
+        fail(f"plain solve (gp): {rec['gp']}")
+    z = ct.Variable(2)
+    for key, prob, want, value in (
+        ("infeasible", ct.Problem(ct.Minimize(ct.sum(z)), [z >= 1, z <= 0]),
+         "infeasible", float("inf")),
+        ("unbounded", ct.Problem(ct.Minimize(ct.sum(z)), [z <= 0]),
+         "unbounded", float("-inf")),
+    ):
+        val = prob.solve(device=device)
+        rec[key] = dict(value=val, status=prob.status)
+        if prob.status != want or val != value or z.value is not None:
+            fail(f"plain solve ({key}): {rec[key]}")
+    launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+    rec["launches"] = launches
+    say("phase7", json.dumps(dict(layer="plain_solve", **rec)))
+    return rec, launches
+
+
 def kernel_record(name, source, replaces, launches, main, shapes):
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -2023,12 +2298,40 @@ def main():
     say(f"small new routes: {time.perf_counter() - t1:.1f} s")
     say(f"phase sparse_jvp: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 7. geometric programs, cone duals, the plain solve and the
+    # structured atoms, each with its counts from 0
+    t0 = time.perf_counter()
+    for name, path in GP_PATHS.items():
+        t1 = time.perf_counter()
+        launches[name] = main_path_phase(ct, counters, path)[1]
+        profile_phase(ct, path)
+        gradient_phase(ct, counters, GP_GRAD_PATHS[name])
+        say(f"path {name}: {time.perf_counter() - t1:.1f} s")
+    for name, build, params, args, grad_out, shapes in DUAL_LAYERS:
+        t1 = time.perf_counter()
+        launches[name] = layer_against_f64(ct, counters, name, build,
+                                           params, args, grad_out,
+                                           shapes)[1]
+        say(f"duals {name}: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    launches["plain_solve"] = plain_solve_phase(ct, counters)[1]
+    say(f"plain solve: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    launches["structured"] = layer_against_f64(
+        ct, counters, "structured", structured_layer, structured_params,
+        STRUCTURED_ARGS, None)[1]
+    say(f"structured: {time.perf_counter() - t1:.1f} s")
+    say(f"phase gp_duals_solve: {time.perf_counter() - t0:.1f} s")
+
     # each kernel's launches on the main path of its slice and on every
     # path a later slice added (the ADMM general-cone paths launch
     # neither; the Markowitz IPM paths launch K2; box_qp_jvp launches K1,
-    # the OT paths neither)
+    # the OT paths neither; the GP, dual and structured layers neither;
+    # the plain solve's f64 LP launches K1)
     later = (RESCUE_PATHS + CONE_PATHS + IPM_CONE_PATHS + tuple(OT_PATHS)
-             + ("box_qp_jvp",))
+             + ("box_qp_jvp",) + tuple(GP_PATHS)
+             + tuple(d[0] for d in DUAL_LAYERS)
+             + ("plain_solve", "structured"))
     k1_launches = sum(launches[p]["K1"] for p in ("admm",) + later)
     k2_launches = sum(launches[p]["K2"] for p in ("ipm",) + later)
     kernels = [

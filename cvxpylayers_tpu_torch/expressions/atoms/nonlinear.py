@@ -643,10 +643,9 @@ def norm(expr, p=2, axis=None, keepdims=False) -> Expression:
     if p == "fro":
         return Norm2(expr)
     if p == "nuc":
-        raise NotImplementedError(
-            "the nuclear norm arrives with the structured-atom later port "
-            "slice"
-        )
+        from .structured import NormNuc
+
+        return NormNuc(expr)
     if expr.ndim == 2:
         # cvxpy matrix-norm semantics: induced norms for p in {1, 2, inf}
         from .affine import Sum

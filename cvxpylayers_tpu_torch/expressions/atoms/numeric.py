@@ -143,7 +143,7 @@ def _suppfunc(e, vals):
         as_expression(float(xv)), e._y
     )
     inner = Problem(Maximize(obj), list(e._constraints))
-    val = inner.solve()
+    val = inner.solve(device=e.device)
     return None if val is None else np.asarray(val, float)
 
 
@@ -159,7 +159,7 @@ def _partial_optimize(e, vals):
     for v in e._outer_vars:
         cons.append(v == np.asarray(v.value, float))
     inner = Problem(e._prob.objective, cons)
-    val = inner.solve()
+    val = inner.solve(device=e.device)
     return None if val is None else np.asarray(val, float)
 
 

@@ -215,10 +215,9 @@ class Expression:
         if other.has_var() or other.has_param():
             # not DCP/DPP, but valid under DGP (monomial division): build the
             # marker atom; DCP validation rejects it outside gp=True
-            raise NotImplementedError(
-                "division by a variable or parameter expression (DGP) "
-                "arrives with the geometric-program later port slice"
-            )
+            from .atoms.gp import DivExpression
+
+            return DivExpression(self, other)
         from .atoms.affine import multiply_dispatch
         from .leaf import Constant
 
@@ -230,10 +229,9 @@ class Expression:
     def __pow__(self, p):
         if isinstance(p, Expression):
             # parameter exponent: valid only under DGP (y**c -> c*log y)
-            raise NotImplementedError(
-                "a parameter exponent (DGP) arrives with the "
-                "geometric-program later port slice"
-            )
+            from .atoms.gp import PowerParam
+
+            return PowerParam(self, p)
         from .atoms.nonlinear import power
 
         return power(self, p)

@@ -36,21 +36,24 @@ class Problem:
         self.value = None
         self.status = None
 
-    def solve(self, solver_args=None, gp: bool = False) -> float:
+    def solve(self, solver_args=None, gp: bool = False,
+              device=None) -> float:
         """cvxpy-style plain solve: uses current `Parameter.value`s,
         populates `Variable.value`, `constraint.dual_value`,
         `self.status` and `self.value`, and returns the optimal value.
-        The canonicalized program and jitted solver are cached on the
-        problem, so changing parameter values and re-solving is cheap.
+        The canonicalized program and the layer are cached on the
+        problem (one per gp flag and device), so changing parameter
+        values and re-solving is cheap.
 
-        Reference parity: cvxpy Problem.solve() (the capability the
-        layered stack builds on); statuses use cvxpy's strings
-        ("optimal", "optimal_inaccurate", "infeasible", "unbounded").
+        `device` is the layer's: the card by default ("cuda", which
+        raises where CUDA is absent); pass device="cpu" to solve on the
+        CPU. Statuses use cvxpy's strings ("optimal",
+        "optimal_inaccurate", "infeasible", "unbounded").
         """
-        raise NotImplementedError(
-            "Problem.solve (the plain-solve path) arrives with a later port "
-            "slice; build a CvxpyLayer instead"
-        )
+        from ..layer.cvxpylayer import solve_problem
+
+        return solve_problem(self, solver_args=solver_args, gp=gp,
+                             device=device)
 
     def variables(self):
         seen = {}
@@ -75,9 +78,9 @@ class Problem:
 
     def is_dgp(self) -> bool:
         """Log-log (geometric-program) discipline check (cvxpy API)."""
-        raise NotImplementedError(
-            "the DGP check arrives with the geometric-program later port slice"
-        )
+        from ..canon.dgp import is_dgp
+
+        return is_dgp(self)
 
     def is_dpp(self) -> bool:
         if not self.is_dcp():

@@ -20,6 +20,11 @@ are assembled, a batched ADMM with one factor for the whole batch
 (solver/shared.py) runs without autograd, and the per-instance polish and
 adjoint start from its iterates with the ADMM loop off.
 
+Under `gp=True` the problem is first rewritten in log space
+(canon/dgp.py): the layer logs the parameters used multiplicatively and
+returns exp of the log-space variables. `solve_problem` (Problem.solve)
+is one unbatched call of a layer cached on the problem.
+
 Device contract: the layer runs on `device` ("cuda" unless the caller asks
 for another); it raises where CUDA is absent and never falls back to the
 CPU. Parameters must already lie on that device (a tensor elsewhere
@@ -35,6 +40,8 @@ batched (batch size 1 is preserved, not squeezed).
 
 from __future__ import annotations
 
+import time
+import types
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,6 +58,7 @@ from ..solver.settings import (
     DUAL_INFEASIBLE,
     MAX_ITERS,
     PRIMAL_INFEASIBLE,
+    SOLVED,
     SolverSettings,
 )
 from ..utils.precision import full_f32
@@ -212,10 +220,6 @@ class CvxpyLayer:
         device=None,
     ):
         del solver, canon_backend  # single native backend; kept for API parity
-        if gp:
-            raise NotImplementedError(
-                "gp=True arrives with the geometric-program later port slice"
-            )
         if not isinstance(problem, Problem):
             raise ValueError(
                 "problem must be a cvxpylayers_tpu_torch Problem"
@@ -228,6 +232,42 @@ class CvxpyLayer:
                 "The layer's parameters must be exactly the problem's "
                 "parameters."
             )
+
+        self.gp = bool(gp)
+        self._gp_log_mask: List[bool] = []
+        self._gp_var_map = None
+        if self.gp:
+            from ..canon.dgp import Dgp2Dcp, DgpError
+
+            transformer = Dgp2Dcp()
+            try:
+                log_problem = transformer.transform_problem(problem)
+            except DgpError as e:
+                raise ValueError(f"Problem is not DGP: {e}") from e
+            if not log_problem.is_dcp():
+                raise ValueError(
+                    "Problem is not DGP (log-log transform is not DCP)."
+                )
+            # remap parameters in user order; untouched params (never used
+            # multiplicatively or as exponent) default to logged
+            new_params = []
+            for p_ in parameters:
+                if id(p_) not in transformer.param_map:
+                    raise ValueError(
+                        f"parameter {p_.name} does not appear in the problem"
+                    )
+                np_, logged = transformer.param_map[id(p_)]
+                new_params.append(np_)
+                self._gp_log_mask.append(logged)
+            self._gp_var_map = transformer.var_map
+            # the transform rebuilt every constraint, in order
+            self._gp_constraint_ids = {
+                oc.id: nc.id
+                for oc, nc in zip(problem.constraints, log_problem.constraints)
+            }
+            problem = log_problem
+            parameters = new_params
+
         if not problem.is_dcp():
             raise ValueError("Problem must be DCP (disciplined convex).")
         if not problem.is_dpp():
@@ -240,11 +280,18 @@ class CvxpyLayer:
         self._outputs = []
         for v in variables:
             if isinstance(v, Variable):
+                if self.gp:
+                    if id(v) not in self._gp_var_map:
+                        raise ValueError(f"{v} is not a variable of the problem")
+                    self._outputs.append(("gpvar", self._gp_var_map[id(v)]))
+                    continue
                 if id(v) not in prob_vars:
                     raise ValueError(f"{v} is not a variable of the problem")
                 self._outputs.append(("var", v))
             elif isinstance(v, DualVariable):
                 cid = v.constraint.id
+                if self.gp:
+                    cid = self._gp_constraint_ids.get(cid, cid)
                 if cid not in prob_cons:
                     raise ValueError(
                         "dual variable does not belong to a problem constraint"
@@ -421,8 +468,12 @@ class CvxpyLayer:
                 f"parameters must be float32 or float64, got {dtype}"
             )
         cols = []
-        for arr, p, is_b in zip(params, self.parameters, batched_flags):
+        log_mask = self._gp_log_mask or [False] * len(self.parameters)
+        for arr, p, is_b, lg in zip(params, self.parameters, batched_flags,
+                                    log_mask):
             arr = arr.to(dtype)
+            if lg:
+                arr = torch.log(arr)
             flat = (
                 arr.reshape(B, p.size)
                 if is_b
@@ -504,29 +555,47 @@ class CvxpyLayer:
         return x, y, s, status, res.iters
 
     def _recover(self, x, y):
-        """Batched (B, n) / (B, m) iterates -> the requested outputs."""
+        """Batched (B, n) / (B, m) iterates -> the requested outputs, each
+        with the batch axis first."""
         outs = []
         prog = self.prog
         B = x.shape[0]
         for entry in self._outputs:
             kind, obj = entry[0], entry[1]
-            if kind == "var":
+            if kind in ("var", "gpvar"):
                 vi = prog.var_info[id(obj)]
-                if vi.symmetric:
+                if kind == "var" and vi.symmetric:
                     s = vi.shape[0]
                     d = s * (s + 1) // 2
                     outs.append(svec_to_sym(x[:, vi.offset:vi.offset + d], s))
+                    continue
+                size = int(np.prod(vi.shape or (1,)))
+                sl = x[:, vi.offset:vi.offset + size].reshape(
+                    (B,) + tuple(vi.shape))
+                # a gp variable is solved for in log space
+                outs.append(torch.exp(sl) if kind == "gpvar" else sl)
+                continue
+            part = entry[2]
+            di = prog.dual_info[obj.id]
+            sl = y[:, di.offset:di.offset + di.length]
+            if di.kind in ("zero", "nonneg") and di.shape is not None:
+                outs.append(sl.reshape((B,) + tuple(di.shape)))
+            elif di.kind == "psd":
+                outs.append(svec_to_sym(sl, di.meta))
+            elif di.kind == "soc":
+                # part 0 is the scalar t-dual, part 1 the X-shaped dual
+                if part == 0:
+                    outs.append(sl[:, 0])
                 else:
-                    size = int(np.prod(vi.shape or (1,)))
-                    sl = x[:, vi.offset:vi.offset + size]
-                    outs.append(sl.reshape((B,) + tuple(vi.shape)))
+                    outs.append(sl[:, 1:].reshape(
+                        (B,) + tuple(obj.args[1].shape)))
+            elif di.kind in ("exp", "pow"):
+                # rows are interleaved (x_i, y_i, z_i) triples; part
+                # selects the x/y/z component, in the argument's shape
+                outs.append(sl[:, part::3].reshape(
+                    (B,) + tuple(obj.args[0].shape)))
             else:
-                di = prog.dual_info[obj.id]
-                sl = y[:, di.offset:di.offset + di.length]
-                if di.kind in ("zero", "nonneg") and di.shape is not None:
-                    outs.append(sl.reshape((B,) + tuple(di.shape)))
-                else:
-                    outs.append(sl)
+                outs.append(sl)
         return tuple(outs)
 
     def __call__(self, *params, solver_args: Optional[dict] = None,
@@ -634,3 +703,122 @@ class CvxpyLayer:
                 "Solver did not reach the requested accuracy "
                 "(max_iters). Try increasing max_iters or loosening eps."
             )
+
+    # ----------------------------------------------------- plain-solve path
+
+    def _pobj(self, settings: SolverSettings, p_ext: torch.Tensor):
+        """The per-instance solve of p_ext (B, n_param+1) from a cold
+        start, with the canonical objective 0.5 x'Px + q'x + offset,
+        computed outside the solve's autograd.Function so it stays plain
+        differentiable torch. Returns (x, y, status, iters, pobj)."""
+        sparse = self._route(settings) == "sparse"
+        P, q, A, b, off = (self._assemble_sparse if sparse
+                           else self._assemble)(p_ext)
+        B = p_ext.shape[0]
+        n, m = self.prog.n, self.prog.m
+        x, y, _, status, iters = self._solver(settings)(
+            P, q, A, b, p_ext.new_zeros(B, n), p_ext.new_zeros(B, m),
+            p_ext.new_zeros(B, m))
+        # elementwise products and sums: no TF32 matmul in the value
+        Px = (self._ops().P_mv(P, x) if sparse
+              else (P * x.unsqueeze(-2)).sum(-1))
+        pobj = 0.5 * (x * Px).sum(-1) + (q * x).sum(-1) + off
+        return x, y, status, iters, pobj
+
+    def solve_values(self, *params, solver_args: Optional[dict] = None):
+        """Unbatched solve returning (outs, status, iters, canonical
+        objective value). Powers Problem.solve(); never raises on solver
+        failure."""
+        settings = _settings_from_args(self._base_settings, solver_args)
+        batch, flags = self._parse_batch(params)
+        if batch is not None:
+            raise ValueError("solve_values expects unbatched parameters")
+        p_ext = self._stack_params(params, None, flags)
+        if settings.matmul_precision != "default":
+            with full_f32():
+                x, y, status, iters, pobj = self._pobj(settings, p_ext)
+        else:
+            x, y, status, iters, pobj = self._pobj(settings, p_ext)
+        outs = tuple(o[0] for o in self._recover(x, y))
+        return outs, status[0], iters[0], pobj[0]
+
+
+# cvxpy status strings (reference semantics: Problem.solve sets
+# problem.status and returns the optimal value)
+_STATUS_STRINGS = {
+    SOLVED: "optimal",
+    MAX_ITERS: "optimal_inaccurate",
+    PRIMAL_INFEASIBLE: "infeasible",
+    DUAL_INFEASIBLE: "unbounded",
+}
+
+
+def solve_problem(problem, solver_args: Optional[dict] = None,
+                  gp: bool = False, device=None):
+    """cvxpy-style plain solve: evaluate `Parameter.value`s, solve once
+    on `device` (the card by default; it raises where CUDA is absent),
+    populate `Variable.value`, `DualVariable.value`, `problem.status`,
+    `problem.value` and `problem.solver_stats`; return the optimal value.
+
+    The layer is cached on the problem, one per (gp flag, device), so
+    re-solving after changing parameter values reuses the canonicalized
+    program and its solver.
+    """
+    params = problem.parameters()
+    for par in params:
+        if par.value is None:
+            raise ValueError(
+                f"parameter {par.name} has no value; set Parameter.value "
+                "before Problem.solve()"
+            )
+    dev = _resolve_device(device)
+    cache = getattr(problem, "_solve_layers", None)
+    if cache is None:
+        cache = {}
+        problem._solve_layers = cache
+    key = (bool(gp), dev)
+    if key not in cache:
+        variables = list(problem.variables())
+        duals = [d for c in problem.constraints for d in c.dual_variables]
+        cache[key] = (
+            CvxpyLayer(problem, parameters=params,
+                       variables=variables + duals, gp=gp, device=dev),
+            variables, duals,
+        )
+    layer, variables, duals = cache[key]
+    # the problem's parameters, in the layer's order (under gp the layer
+    # holds log-space copies without values, and logs these itself)
+    vals = [torch.as_tensor(par.value, device=dev) for par in params]
+    t0 = time.perf_counter()
+    outs, status, iters, pobj = layer.solve_values(
+        *vals, solver_args=solver_args
+    )
+    st = int(status)  # a host read: the clock stops after the device's work
+    problem.solver_stats = types.SimpleNamespace(
+        num_iters=int(iters), solve_time=time.perf_counter() - t0,
+        solver_name="cvxpylayers_tpu_torch",
+    )
+    problem.status = _STATUS_STRINGS.get(st, "solver_error")
+    maximize = layer.prog.maximize
+    if st in (PRIMAL_INFEASIBLE, DUAL_INFEASIBLE):
+        inf = float("inf")
+        if st == PRIMAL_INFEASIBLE:
+            problem.value = -inf if maximize else inf
+        else:
+            problem.value = inf if maximize else -inf
+        for var in variables:
+            var.value = None
+        for d in duals:
+            d.value = None
+        return problem.value
+    for var, out in zip(variables, outs[:len(variables)]):
+        var.value = out.detach().cpu().numpy()
+    for d, out in zip(duals, outs[len(variables):]):
+        d.value = out.detach().cpu().numpy()
+    val = float(pobj)
+    if maximize:
+        val = -val
+    if gp:
+        val = float(np.exp(val))
+    problem.value = val
+    return val

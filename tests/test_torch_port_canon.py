@@ -165,10 +165,15 @@ def test_out_of_slice_features_raise():
     v = torch.tensor([0.5, -1.0, 2.0], dtype=torch.float64)
     (sol,) = layer(v, solver_args={"solve_method": "ipm"})
     np.testing.assert_allclose(sol.numpy(), v.numpy(), atol=1e-6)
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        ct.Problem(ct.Minimize(ct.sum_squares(x - p))).solve()
-    with pytest.raises(NotImplementedError, match="later port slice"):
-        _ = x / p
+    # the plain solve and division by an expression behave as the
+    # reference's: no value raises, x / p is a (DGP) quotient
+    for pk, kw in ((ct, {"device": "cpu"}), (cj, {})):
+        xk, pk_ = pk.Variable(3), pk.Parameter(3)
+        with pytest.raises(ValueError, match="has no value"):
+            pk.Problem(pk.Minimize(pk.sum_squares(xk - pk_))).solve(**kw)
+    xj, pj = cj.Variable(3), cj.Parameter(3)
+    assert (x / p).curvature().name == (xj / pj).curvature().name
+    assert type(x / p).__name__ == type(xj / pj).__name__ == "DivExpression"
 
 
 _DIMS = [
