@@ -82,6 +82,22 @@ Phases (any failure exits non-zero before the result line):
              linprog, a cached re-solve, the GP, an infeasible and an
              unbounded problem); a layer of structured atoms
              (sum_largest, norm_nuc, lambda_sum_largest) at B=256
+  8. serve   the model zoo served by dist.BucketScheduler: three steps of
+             a mixed stream (two box_qp(50, 20) layers in one bucket at
+             1024, 1024 and 896 rows, capacity 1024; sparsemax,
+             csparsemax and relu at B=256 and an unbatched sparsemax
+             instance, f32, the box-QP's settings), K1 on every bucket's
+             flush and K2 never, each item against a direct call of its
+             layer, 8 lanes of each against the port's f64 bucketed
+             solve on the CPU, the warm start carried over (and dropped
+             when the composition changes), the box-QP bucket's stats,
+             the gradient through the scheduler against direct calls; a
+             profiled step inside a trace_annotation, PhaseTimer phases,
+             problem_summary of every zoo layer; on one card the
+             distributed runtime (a world of one rank on NCCL, the
+             global mesh, a global batch round trip, the sharded box-QP
+             call at B=1024 against the direct call, solve_bucketed over
+             the mesh); and the scaling harness in its own process
 
 Imports nothing of JAX or of cvxpylayers_tpu. The second-to-last lines
 are the card's name and power limit and the per-kernel JSON record; the
@@ -1239,26 +1255,35 @@ def main_path_phase(ct, counters, path, calls=None, B=None):
 
 def device_profile(ct, path, layer, params):
     """Device time by kernel name for one call of a path."""
+    return kernel_times(lambda: path.solve(ct, layer, params))[:3]
+
+
+def kernel_times(fn, host=False):
+    """(device us, device kernel count, the top 8 (us, name, count), the
+    profile) of one call of `fn`; `host` records host events as well
+    (user annotations among them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     # device activity only, read from the trace's raw events: recording
     # every host operator, or averaging through key_averages(), costs
     # about 0.2 ms an event, many seconds on the Anderson path
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        path.solve(ct, layer, params)
-        torch.cuda.synchronize()
+    acts = (([ProfilerActivity.CUDA] if DEV == "cuda" else [])
+            + ([ProfilerActivity.CPU] if host else []))
+    with profile(activities=acts) as prof:
+        fn()
+        sync()
     by_name = {}
     for e in prof.profiler.kineto_results.events():
-        if e.device_type() != DeviceType.CUDA:
-            continue  # runtime calls on the host
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation():
+            continue  # host events, and annotation ranges on the device
         us, n = by_name.get(e.name(), (0.0, 0))
         by_name[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
     rows = sorted(((us, name, n) for name, (us, n) in by_name.items()),
                   reverse=True)
     total = sum(us for us, _, _ in rows)
     count = sum(n for _, _, n in rows)
-    return total, count, rows[:8]
+    return total, count, rows[:8], prof
 
 
 def profile_phase(ct, path):
@@ -2192,6 +2217,457 @@ def plain_solve_phase(ct, counters):
     return rec, launches
 
 
+# ---------------------------------------------------------------- 8. serve
+
+# the scheduler's box-QP items in each step, over two box_qp(50, 20)
+# layers (a, b, a) that share one bucket: steps 1 and 2 fill capacity
+# 1024 with the same composition and data (the warm start carries over),
+# step 3 holds 896 rows at the same capacity (a new composition: cold)
+SERVE_BOX_STEPS = ((384, 512, 128), (384, 512, 128), (320, 512, 64))
+SERVE_N = 50
+SERVE_B = 256        # each of sparsemax, csparsemax and relu
+SERVE_LANES = 8      # lanes of each item held against f64 on the CPU
+SERVE_SHARD_B = 1024  # the sharded box-QP call's batch
+SERVE_LABELS = ("box_qp", "box_qp", "sparsemax", "csparsemax", "relu")
+
+
+class BucketLog:
+    """Wraps the bucket solver that solve_bucketed and the scheduler
+    build (dist/bucketing.py's `_shared_core`) to record, for every
+    bucket solve, its (n, m), its padded batch, whether it started warm,
+    the launches of each kernel during it, and its statuses and
+    iterations."""
+
+    def __init__(self, counters):
+        self.counters = counters
+        self.records = []
+
+    def __enter__(self):
+        from cvxpylayers_tpu_torch.dist import bucketing
+
+        self._core = core = bucketing._shared_core
+
+        def logged_core(dims, n, *rest):
+            solve = core(dims, n, *rest)
+
+            def logged(P, q, A, b, x0, y0, s0):
+                before = {k: mod.LAUNCHES for k, mod in self.counters.items()}
+                warm = bool(x0.any())
+                out = solve(P, q, A, b, x0, y0, s0)
+                self.records.append(dict(
+                    n=n, m=dims.total, B=q.shape[0], warm=warm,
+                    launches={k: mod.LAUNCHES - before[k]
+                              for k, mod in self.counters.items()},
+                    status=out[3].detach(), iters=out[4].detach()))
+                return out
+
+            return logged
+
+        bucketing._shared_core = logged_core
+        return self
+
+    def __exit__(self, *exc):
+        from cvxpylayers_tpu_torch.dist import bucketing
+
+        bucketing._shared_core = self._core
+
+
+def serve_layers(device):
+    """box_qp(50, 20) twice, sparsemax, csparsemax and relu at n=50."""
+    from cvxpylayers_tpu_torch import models
+
+    return (models.box_qp(SERVE_N, 20, device=device),
+            models.box_qp(SERVE_N, 20, device=device),
+            models.sparsemax(SERVE_N, device=device),
+            models.csparsemax(SERVE_N, device=device),
+            models.relu(SERVE_N, device=device))
+
+
+def serve_host(r, sizes):
+    """One step's host arrays, item by item: the box-QP items of `sizes`,
+    sparsemax, csparsemax and relu at SERVE_B, one unbatched sparsemax
+    instance."""
+    host = [box_qp_params(r, B) for B in sizes]
+    host += [[r.standard_normal((SERVE_B, SERVE_N))] for _ in range(3)]
+    return host + [[r.standard_normal(SERVE_N)]]
+
+
+def serve_items(layers, host, dtype, device=None, lanes=None, grad=False):
+    """(layer, params) items over `host`: the owners are box a, b, a,
+    sparsemax, csparsemax, relu, sparsemax; `lanes` keeps the first lanes
+    of each batched item; `grad` makes the box-QP parameters leaves that
+    require gradients."""
+    box_a, box_b, spm, cspm, relu = layers
+    owners = (box_a, box_b, box_a, spm, cspm, relu, spm)
+    items = []
+    for i, (layer, h) in enumerate(zip(owners, host)):
+        if lanes is not None and i < 6:
+            h = [a[:lanes] for a in h]
+        params = to_dev(h, dtype, device)
+        if grad and i < 3:
+            params = [p.requires_grad_() for p in params]
+        items.append((layer, tuple(params)))
+    return items
+
+
+def item_status(items, records):
+    """Each item's lanes' statuses from the bucket records of one step
+    (items of a bucket lie in submission order)."""
+    by_m = {rec["m"]: rec for rec in records}
+    offset = {}
+    out = []
+    for layer, params in items:
+        m = layer.prog.m
+        B = layer._parse_batch(params)[0] or 1
+        off = offset.get(m, 0)
+        out.append(by_m[m]["status"][off:off + B])
+        offset[m] = off + B
+    return out
+
+
+def serve_phase(ct, counters):
+    """bench.py's flagship box-QP and three zoo layers served by the
+    bucket scheduler on the card (module docstring, phase 8). Returns the
+    launches over the three steps and SERVE_SHARD_B box-QP instances
+    that solved both through the scheduler and by a direct call."""
+    from cvxpylayers_tpu_torch.dist import BucketScheduler, solve_bucketed
+    from cvxpylayers_tpu_torch.dist.bucketing import structure_key
+    from cvxpylayers_tpu_torch.layer.cvxpylayer import _settings_from_args
+    from cvxpylayers_tpu_torch.utils import (
+        PhaseTimer,
+        problem_summary,
+        trace_annotation,
+    )
+
+    layers = serve_layers(DEV)
+    labels = {l.prog.m: name for l, name in zip(layers, SERVE_LABELS)}
+    if len(labels) != 4:
+        fail(f"serve: the zoo layers' row counts {sorted(labels)} do not "
+             "tell the four buckets apart")
+    r = np.random.default_rng(12)
+    sched = BucketScheduler(solver_args=BOX_QP_ARGS)
+    timer = PhaseTimer()
+    steps = []
+    for i, sizes in enumerate(SERVE_BOX_STEPS):
+        if i == 1:  # the same composition and data as step 1
+            host = steps[0]["host"]
+        else:
+            host = serve_host(r, sizes)
+        items = serve_items(layers, host, torch.float32, grad=(i == 0))
+        sync()
+        for mod in counters.values():
+            mod.LAUNCHES = 0
+        outs = []
+        with BucketLog(counters) as log, \
+                timer.phase(f"step{i + 1}", block_on=outs):
+            outs.extend(sched.step(items))
+        launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+        steps.append(dict(host=host, items=items, outs=outs,
+                          records=log.records, launches=launches,
+                          ms=timer.totals[f"step{i + 1}"] * 1e3))
+    box_key = structure_key(layers[0], _settings_from_args(
+        layers[0]._base_settings, BOX_QP_ARGS))
+    stats = sched.stats()[box_key]
+
+    # ---- every bucket of every step: kernels, solved lanes, warm starts
+    summary = []
+    total_solved = total = 0
+    for i, st in enumerate(steps):
+        real = {"box_qp": sum(SERVE_BOX_STEPS[i]), "sparsemax": SERVE_B + 1,
+                "csparsemax": SERVE_B, "relu": SERVE_B}
+        if sorted(labels[rec["m"]] for rec in st["records"]) != sorted(real):
+            fail(f"serve step {i + 1}: buckets "
+                 f"{[labels.get(rec['m']) for rec in st['records']]}")
+        for rec in st["records"]:
+            name = labels[rec["m"]]
+            Br = real[name]
+            ok = int((rec["status"][:Br] == 0).sum())
+            total_solved += ok
+            total += Br
+            rec.update(name=name, real=Br, solved=ok / Br,
+                       iters_mean=float(rec["iters"][:Br].float().mean()))
+            check_launches(f"serve step {i + 1} bucket {name}",
+                           rec["launches"], "K1", ("K2",))
+            # cold on step 1, warm on step 2, and on step 3 warm only
+            # where the bucket's composition is unchanged
+            want_warm = i == 1 or (i == 2 and name != "box_qp")
+            if rec["warm"] != want_warm:
+                fail(f"serve step {i + 1} bucket {name}: warm start "
+                     f"{rec['warm']}, expected {want_warm}")
+            summary.append(dict(
+                step=i + 1, bucket=name, rows=Br, capacity=rec["B"],
+                warm=rec["warm"], solved=rec["solved"],
+                iters_mean=rec["iters_mean"],
+                iters_max=int(rec["iters"][:Br].max()),
+                launches=rec["launches"]))
+    for rec1, rec2 in zip(sorted(steps[0]["records"], key=lambda d: d["m"]),
+                          sorted(steps[1]["records"], key=lambda d: d["m"])):
+        if rec2["iters_mean"] > rec1["iters_mean"]:
+            fail(f"serve bucket {rec1['name']}: mean iterations "
+                 f"{rec2['iters_mean']} warm against {rec1['iters_mean']} "
+                 "cold")
+    box3 = next(rec for rec in steps[2]["records"] if rec["name"] == "box_qp")
+    rows = [sum(sizes) for sizes in SERVE_BOX_STEPS]
+    cap = 1 << (max(rows) - 1).bit_length()
+    # the reference's occupancy is over every flush: 1024 + 1024 + 896
+    # rows of 3 x 1024 at full width; the last flush alone is 896 / 1024
+    if (stats["capacity"] != cap or stats["compiles"] != 1
+            or stats["flushes"] != 3
+            or abs(stats["occupancy"] - sum(rows) / (3 * cap)) > 1e-12
+            or (box3["real"], box3["B"]) != (rows[2], cap)):
+        fail(f"serve: box-QP bucket stats {stats}, step 3 {box3['real']} "
+             f"rows at capacity {box3['B']}")
+
+    # ---- every item against a direct call of its own layer
+    worst = 0.0
+    both_frac = []
+    pool = [[], [], []]
+    for i, st in enumerate(steps):
+        sched_status = item_status(st["items"], st["records"])
+        for j, ((layer, params), outs, s_st) in enumerate(
+                zip(st["items"], st["outs"], sched_status)):
+            d_outs, d_st, _ = layer.solve_with_info(
+                *(p.detach() for p in params), solver_args=BOX_QP_ARGS)
+            # a lane left at MAX_ITERS carries no certified answer to
+            # agree with (csparsemax leaves ~1.6 % there at 50 iterations
+            # on either route): hold the lanes solved on both
+            both = (s_st.reshape(-1) == 0) & (d_st.reshape(-1) == 0)
+            both_frac.append(float(both.float().mean()))
+            if not bool(both.any()):
+                fail(f"serve step {i + 1} item {j}: no lane solved on both "
+                     "routes")
+            x = outs[0].detach().reshape(both.shape[0], -1)
+            xd = d_outs[0].reshape(both.shape[0], -1)
+            worst = max(worst, float((x - xd)[both].abs().max()))
+            if j < 3 and i != 1:  # box-QP instances for the sharded call
+                keep = both.cpu().numpy()
+                for k in range(3):
+                    pool[k].append(st["host"][j][k][keep])
+    if worst > 2e-3:
+        fail(f"serve: scheduler against direct calls {worst:.3e}")
+    pool = [np.concatenate(a)[:SERVE_SHARD_B] for a in pool]
+    if pool[0].shape[0] != SERVE_SHARD_B:
+        fail(f"serve: only {pool[0].shape[0]} box-QP lanes solved both ways")
+
+    # ---- 8 lanes of each item of step 1 against f64 on the CPU, where
+    # both solved
+    cpu_items = serve_items(serve_layers("cpu"), steps[0]["host"],
+                            torch.float64, "cpu", lanes=SERVE_LANES)
+    with BucketLog({}) as log64:
+        ref = solve_bucketed(cpu_items, solver_args=BOX_QP_ARGS)
+    f64_worst = 0.0
+    f64_lanes = 0
+    for outs, outs64, st32, st64 in zip(
+            steps[0]["outs"], ref,
+            item_status(steps[0]["items"], steps[0]["records"]),
+            item_status(cpu_items, log64.records)):
+        k = st64.shape[0]
+        both = ((st32[:k].cpu() == 0) & (st64 == 0)).reshape(-1)
+        x = outs[0].detach().reshape(-1, SERVE_N)[:k].double().cpu()
+        gap = (x - outs64[0].reshape(k, -1)).abs().max(dim=1).values
+        f64_lanes += int(both.sum())
+        if bool(both.any()):
+            f64_worst = max(f64_worst, float(gap[both].max()))
+    if f64_worst > 2e-3:
+        fail(f"serve: f32 on the card against f64 on the CPU {f64_worst:.3e}")
+
+    # ---- the gradient of step 1's box-QP outputs against direct calls
+    rg = np.random.default_rng(13)
+    weights = [torch.as_tensor(rg.standard_normal((B, SERVE_N)),
+                               dtype=torch.float32, device=DEV)
+               for B in SERVE_BOX_STEPS[0]]
+    box_items = steps[0]["items"][:3]
+    sum((w * outs[0]).sum() for w, outs in
+        zip(weights, steps[0]["outs"][:3])).backward()
+    grad_worst = 0.0
+    for (layer, params), w, h in zip(box_items, weights, steps[0]["host"]):
+        leaves = [p.requires_grad_() for p in to_dev(h, torch.float32)]
+        (x,), _, _ = layer.solve_with_info(*leaves, solver_args=BOX_QP_ARGS)
+        (w * x).sum().backward()
+        for p, q_ in zip(params, leaves):
+            g, gd = p.grad[:SERVE_LANES], q_.grad[:SERVE_LANES]
+            scale = max(float(gd.abs().max()), 1e-3)
+            grad_worst = max(grad_worst, float((g - gd).abs().max()) / scale)
+    if grad_worst > 1e-2:
+        fail(f"serve: gradient through the scheduler against direct calls "
+             f"{grad_worst:.3e}")
+
+    # ---- one more step of step 3's composition, profiled, annotated
+    items3 = [(layer, tuple(p.detach() for p in params))
+              for layer, params in steps[2]["items"]]
+    with trace_annotation("serve_step"):
+        sched.step(items3)  # warm-up of the annotation's own path
+    sync()
+
+    def annotated():
+        with trace_annotation("serve_step"):
+            sched.step(items3)
+
+    total_us, count, top, prof = kernel_times(annotated, host=True)
+    names = {e.name() for e in prof.profiler.kineto_results.events()}
+    if "serve_step" not in names:
+        fail("serve: trace_annotation's range is not in the profiler trace")
+    if DEV == "cuda" and count == 0:
+        fail("serve: the profiled step ran no device kernel")
+    say(f"profile (serve step 3's composition): {count} device kernels "
+        f"for {total_us / 1e3:.3f} ms of device time; top (us, name, "
+        "count):")
+    for us, key, n_calls in top:
+        say(f"  {us:10.1f}  {key[:90]}  x{n_calls}")
+    for name, layer in zoo_layers():
+        say("zoo", name, json.dumps(problem_summary(layer)))
+    say("serve", json.dumps(dict(
+        B_per_step=[sum(s) + 3 * SERVE_B + 1 for s in SERVE_BOX_STEPS],
+        ms_per_step=[st["ms"] for st in steps],
+        phase_timer=timer.summary().splitlines(),
+        solved_fraction=total_solved / total,
+        buckets=summary, box_qp_stats=stats,
+        last_flush_occupancy=box3["real"] / box3["B"],
+        max_abs_diff_vs_direct=worst,
+        solved_on_both_routes_per_item=both_frac,
+        max_abs_diff_vs_f64_cpu=f64_worst,
+        f64_lanes_solved_on_both=f64_lanes,
+        grad_rel_err_vs_direct=grad_worst,
+        profiled_step=dict(device_kernels=count, device_ms=total_us / 1e3),
+        launches_per_step=[st["launches"] for st in steps])))
+    if total_solved / total < 0.99:
+        fail(f"serve: solved fraction {total_solved / total}")
+    launches = {k: sum(st["launches"][k] for st in steps) for k in counters}
+    return launches, pool
+
+
+def zoo_layers():
+    """Every zoo factory at n=50 on the card (exp-cone layers are built,
+    not solved: their layer code is phase 7's exp-cone path)."""
+    from cvxpylayers_tpu_torch import models
+
+    return [
+        ("relu", models.relu(50, device=DEV)),
+        ("sigmoid", models.sigmoid(50, device=DEV)),
+        ("softmax", models.softmax(50, device=DEV)),
+        ("sparsemax", models.sparsemax(50, device=DEV)),
+        ("csoftmax", models.csoftmax(50, device=DEV)),
+        ("csparsemax", models.csparsemax(50, device=DEV)),
+        ("lml", models.lml(50, 5, device=DEV)),
+        ("box_qp", models.box_qp(50, 20, device=DEV)),
+        ("ellipsoid_projection", models.ellipsoid_projection(50,
+                                                             device=DEV)),
+        ("markowitz", models.markowitz(50, device=DEV)),
+        ("logistic_regression_layer",
+         models.logistic_regression_layer(10, 50, device=DEV)),
+    ]
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_dist_phase(ct, counters, pool):
+    """The distributed runtime on one card: a world of one rank (NCCL on
+    the card), the global mesh, a global batch round trip, the sharded
+    box-QP call at B=1024 against the direct call (outputs and gradient)
+    and solve_bucketed over the mesh. Returns the sharded call's
+    launches."""
+    import torch.distributed as tdist
+
+    from cvxpylayers_tpu_torch import models
+    from cvxpylayers_tpu_torch.dist import (
+        global_batch,
+        host_local_results,
+        initialize,
+        make_global_mesh,
+        solve_bucketed,
+    )
+    from cvxpylayers_tpu_torch.parallel import shard_layer_call
+
+    if not initialize(f"127.0.0.1:{free_port()}", 1, 0, device=DEV):
+        fail("dist: initialize started no process group")
+    try:
+        backend = tdist.get_backend()
+        if backend != ("nccl" if DEV == "cuda" else "gloo"):
+            fail(f"dist: backend {backend} on {DEV}")
+        mesh = make_global_mesh(device_type=DEV)
+        local = np.arange(24, dtype=np.float32).reshape(8, 3)
+        g = global_batch(local, mesh)
+        if (tuple(g.shape) != (8, 3)
+                or not np.array_equal(host_local_results(g), local)
+                or not np.array_equal(g.full_tensor().cpu().numpy(), local)):
+            fail("dist: global_batch / host_local_results round trip")
+
+        box = models.box_qp(SERVE_N, 20, device=DEV)
+        w = torch.as_tensor(np.random.default_rng(14).standard_normal(
+            (pool[0].shape[0], SERVE_N)), dtype=torch.float32, device=DEV)
+
+        def run(call):
+            leaves = [p.requires_grad_() for p in to_dev(pool, torch.float32)]
+            sync()
+            for mod in counters.values():
+                mod.LAUNCHES = 0
+            t0 = time.perf_counter()
+            (x,) = call(*leaves, solver_args=BOX_QP_ARGS)
+            (w * x).sum().backward()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            launches = {k: mod.LAUNCHES for k, mod in counters.items()}
+            return x.detach(), [p.grad for p in leaves], launches, ms
+
+        xs, gs, launches, ms_shard = run(shard_layer_call(box, mesh))
+        xd, gd, _, ms_direct = run(box)
+        dx = float((xs - xd).abs().max())
+        dg = max(float((a - b).abs().max()) for a, b in zip(gs, gd))
+        check_launches("dist sharded box-QP", launches, "K1", ("K2",))
+        # a world of one rank is a plain call: the same solve
+        if dx > 1e-6 or dg > 1e-6:
+            fail(f"dist: sharded call against direct call: outputs "
+                 f"{dx:.3e}, gradients {dg:.3e}")
+        spm = models.sparsemax(SERVE_N, device=DEV)
+        items = [(box, tuple(to_dev([a[:256] for a in pool], torch.float32))),
+                 (spm, tuple(to_dev([pool[0][:64]], torch.float32)))]
+        res = solve_bucketed(items, solver_args=BOX_QP_ARGS, mesh=mesh)
+        ref = solve_bucketed(items, solver_args=BOX_QP_ARGS)
+        db = max(float((a[0] - b[0]).abs().max()) for a, b in zip(res, ref))
+        if db > 1e-6:
+            fail(f"dist: solve_bucketed over the mesh against no mesh {db:.3e}")
+        say("dist", json.dumps(dict(
+            backend=backend, world=tdist.get_world_size(),
+            mesh=str(mesh), B=int(pool[0].shape[0]),
+            sharded_vs_direct_out=dx, sharded_vs_direct_grad=dg,
+            ms_fwd_bwd_sharded=ms_shard, ms_fwd_bwd_direct=ms_direct,
+            bucketed_mesh_vs_plain=db, launches=launches)))
+    finally:
+        tdist.destroy_process_group()
+    return launches
+
+
+def harness_phase(root, args=("--batch", "1024", "--n", "20", "--steps",
+                              "3", "--sweep-batch")):
+    """The scaling harness in its own process on the card: every solves/s
+    above 0."""
+    cmd = [sys.executable, "-m", "cvxpylayers_tpu_torch.dist.harness",
+           *args] + (["--cpu"] if DEV != "cuda" else [])
+    env = dict(os.environ)
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=300,
+                         cwd=root, env=env)
+    if res.returncode != 0:
+        fail(f"harness exited {res.returncode}: {res.stderr[-3000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    if not lines:
+        fail(f"harness printed no result: {res.stdout[-2000:]}")
+    out = json.loads(lines[-1])
+    rates = [v for k, v in out.items() if k.startswith("solves_per_s")
+             and not isinstance(v, dict)]
+    rates += list(out.get("solves_per_s_1host_by_batch", {}).values())
+    if not rates or min(rates) <= 0:
+        fail(f"harness: a rate is not above 0: {out}")
+    say("harness", json.dumps(out))
+    return out
+
+
 def kernel_record(name, source, replaces, launches, main, shapes):
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
@@ -2323,15 +2799,34 @@ def main():
     say(f"structured: {time.perf_counter() - t1:.1f} s")
     say(f"phase gp_duals_solve: {time.perf_counter() - t0:.1f} s")
 
+    # ---- 8. the bucket scheduler serving zoo layers, profiling, the
+    # distributed runtime on one card and the scaling harness, each with
+    # its counts from 0
+    t0 = time.perf_counter()
+    launches["serve"], pool = serve_phase(ct, counters)
+    say(f"serve: {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    launches["serve_dist"] = serve_dist_phase(ct, counters, pool)
+    say(f"dist: {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    harness_phase(root)
+    say(f"harness: {time.perf_counter() - t1:.1f} s")
+    say(f"phase serve: {time.perf_counter() - t0:.1f} s")
+    if any(m == "jax" or m.startswith("jax.") or m == "cvxpylayers_tpu"
+           or m.startswith("cvxpylayers_tpu.") for m in sys.modules):
+        fail("the port's dist, models or utils imported JAX or the JAX "
+             "package")
+
     # each kernel's launches on the main path of its slice and on every
     # path a later slice added (the ADMM general-cone paths launch
     # neither; the Markowitz IPM paths launch K2; box_qp_jvp launches K1,
     # the OT paths neither; the GP, dual and structured layers neither;
-    # the plain solve's f64 LP launches K1)
+    # the plain solve's f64 LP launches K1; every bucket of the serve
+    # phase and the sharded box-QP launch K1)
     later = (RESCUE_PATHS + CONE_PATHS + IPM_CONE_PATHS + tuple(OT_PATHS)
              + ("box_qp_jvp",) + tuple(GP_PATHS)
              + tuple(d[0] for d in DUAL_LAYERS)
-             + ("plain_solve", "structured"))
+             + ("plain_solve", "structured", "serve", "serve_dist"))
     k1_launches = sum(launches[p]["K1"] for p in ("admm",) + later)
     k2_launches = sum(launches[p]["K2"] for p in ("ipm",) + later)
     kernels = [

@@ -221,8 +221,20 @@ class CvxpyLayer:
     ):
         del solver, canon_backend  # single native backend; kept for API parity
         if not isinstance(problem, Problem):
-            raise ValueError(
-                "problem must be a cvxpylayers_tpu_torch Problem"
+            # optional cvxpy interop: accept a real cvxpy.Problem when
+            # cvxpy is installed (canon/cvxpy_interop.py)
+            from ..canon.cvxpy_interop import (
+                convert_problem,
+                is_cvxpy_problem,
+            )
+
+            if not is_cvxpy_problem(problem):
+                raise ValueError(
+                    "problem must be a cvxpylayers_tpu_torch Problem (or "
+                    "a cvxpy Problem, when cvxpy is installed)"
+                )
+            problem, parameters, variables = convert_problem(
+                problem, parameters, variables
             )
         self.device = _resolve_device(device)
         prob_params = {id(p) for p in problem.parameters()}
