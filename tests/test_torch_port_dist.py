@@ -182,7 +182,7 @@ def ranks(tmp_path_factory):
         env=_env(), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True) for r in range(WORLD)]
     try:
-        errs = [p.communicate(timeout=300)[1] for p in procs]
+        errs = [p.communicate(timeout=240)[1] for p in procs]
     finally:
         for p in procs:
             if p.poll() is None:
@@ -296,7 +296,7 @@ def test_multiprocess_scaling_harness():
         [sys.executable, "-m", "cvxpylayers_tpu_torch.dist.harness",
          "--procs", "2", "--devices-per-proc", "2", "--batch", "8",
          "--n", "6", "--steps", "2", "--port", str(_free_port())],
-        capture_output=True, text=True, timeout=300, env=_env(), cwd=REPO,
+        capture_output=True, text=True, timeout=240, env=_env(), cwd=REPO,
     )
     assert res.returncode == 0, res.stderr[-3000:]
     line = [ln for ln in res.stdout.splitlines() if ln.startswith("{")][-1]
