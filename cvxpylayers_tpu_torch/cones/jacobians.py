@@ -30,6 +30,7 @@ from .projections import (
     _group_runs,
     _pow_from_root,
     _pow_solve_root,
+    eigh,
     svec_indices,
     svec_to_sym,
     sym_to_svec,
@@ -122,7 +123,7 @@ def _psd_factor(wb: torch.Tensor, s: int):
     eigenvalue-gap rule (gaps within 1e-12 of the spectrum's scale take
     the diagonal limit 1[l > 0])."""
     M = svec_to_sym(wb, s)
-    lam, U = torch.linalg.eigh(M)
+    lam, U = eigh(M)
     lp = torch.clamp_min(lam, 0.0)
     dl = lam[..., :, None] - lam[..., None, :]
     num = lp[..., :, None] - lp[..., None, :]

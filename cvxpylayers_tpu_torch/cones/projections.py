@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..utils.precision import full_f32
+from ..utils.profiling import count
 from .dims import ConeDims
 
 
@@ -412,12 +413,35 @@ def sym_to_svec(M: torch.Tensor) -> torch.Tensor:
     return M[..., r, c] * _svec_scale(r, c, math.sqrt(2.0), M)
 
 
+# the most matrices one torch.linalg.eigh call takes on CUDA: cuSOLVER's
+# batched syev refuses larger batches (CUSOLVER_STATUS_INVALID_VALUE from
+# its buffer-size query; torch 2.11, CUDA 12.8), and an LML layer at
+# n = 100 and B = 256 asks for 51,200 3x3 matrices at once
+_EIGH_CHUNK = 16384
+
+
+def eigh(M: torch.Tensor, vectors: bool = True):
+    """torch.linalg.eigh (or, without vectors, eigvalsh) of (..., d, d),
+    counted as one call, in chunks of at most _EIGH_CHUNK matrices (on
+    every device: each matrix's result is its own either way)."""
+    count("eigh")
+    fn = torch.linalg.eigh if vectors else torch.linalg.eigvalsh
+    lead = M.shape[:-2]
+    if lead.numel() <= _EIGH_CHUNK:
+        return fn(M)
+    parts = [fn(c) for c in M.reshape(-1, *M.shape[-2:]).split(_EIGH_CHUNK)]
+    if not vectors:
+        return torch.cat(parts).reshape(lead + M.shape[-1:])
+    return (torch.cat([w for w, _ in parts]).reshape(lead + M.shape[-1:]),
+            torch.cat([U for _, U in parts]).reshape(M.shape))
+
+
 def project_psd_svec(v: torch.Tensor, s: int) -> torch.Tensor:
     """Project svec-packed blocks (..., s(s+1)/2) onto the PSD cone
     (eigenvalue clamping; `torch.linalg.eigh` reads the device once to
-    check convergence)."""
+    check convergence, each chunk of `eigh`)."""
     M = svec_to_sym(v, s)
-    w, U = torch.linalg.eigh(M)
+    w, U = eigh(M)
     w = torch.clamp_min(w, 0.0)
     with full_f32():
         P = (U * w[..., None, :]) @ U.mT

@@ -48,6 +48,7 @@ from ..solver.matfree import (
 )
 from ..solver.refine import make_polished_solver
 from ..solver.settings import SolverSettings
+from ..utils.profiling import spanned
 
 
 class _Rule(NamedTuple):
@@ -125,6 +126,7 @@ class _ImplicitSolve(torch.autograd.Function):
 
     @staticmethod
     @once_differentiable
+    @spanned("adjoint")
     def backward(ctx, dx, dy, ds, _dstatus, _diters):
         rule = ctx.rule
         if rule.derivative != "adjoint":

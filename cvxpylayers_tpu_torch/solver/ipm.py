@@ -85,12 +85,14 @@ from ..cones.barriers import (
 from ..cones.dims import ConeDims
 from ..cones.projections import (
     _group_runs,
+    eigh,
     make_cone_projector,
     svec_indices,
     svec_to_sym,
     sym_to_svec,
 )
 from ..utils.precision import full_f32
+from ..utils.profiling import count, span, spanned
 from .admm import SolveResult, amax_abs, bdot, bmv, bmv_t
 from .batched_linalg import use_masked
 from .cuda_linalg import qr_r
@@ -300,8 +302,8 @@ def _eigh(M, vectors=True):
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
     M = torch.where(bad[..., None, None], eye, M)
     if not vectors:
-        return torch.linalg.eigvalsh(M).masked_fill(bad[..., None], torch.nan)
-    w, U = torch.linalg.eigh(M)
+        return eigh(M, vectors=False).masked_fill(bad[..., None], torch.nan)
+    w, U = eigh(M)
     return (w.masked_fill(bad[..., None], torch.nan),
             U.masked_fill(bad[..., None, None], torch.nan))
 
@@ -565,6 +567,7 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                      dense_apply and dtype != torch.float64)
         return I_, I_, I_
 
+    @spanned("ipm.scaling")
     def build_T(s, z, mu):
         """Block-diagonal scaling T with T z ~= s on the path, its
         blockwise inverse, and a blockwise factor B with B'B = T^{-1}
@@ -700,6 +703,7 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
             oks.append(ok.all(dim=-1))
         return torch.stack(oks).all(dim=0).all(dim=0)
 
+    @spanned("ipm.step_length")
     def step_len_pair(s, ds, z, dz):
         """min of the max alpha in [0, 1] keeping s + alpha ds in K and
         of the one keeping z + alpha dz in K*, per lane (zero for the
@@ -776,6 +780,7 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                 parts.append(eb.expand_as(vb))
         return assemble(torch.clamp_min(vv[:, :l], 1e-3), parts)
 
+    @spanned("ipm.step_length")
     def accept(alpha, x, dx, y, dy, s, ds, z, dz, extra=None):
         """The step acceptance with backtracking: the largest alpha in
         {alpha, alpha/2, alpha/4, alpha/8, 0} whose endpoint is finite
@@ -825,6 +830,7 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                 K[:, n + p_eq:, n + p_eq:] = -bd_dense(T)
             LU, piv, _ = torch.linalg.lu_factor_ex(K)
 
+            @spanned("ipm.kkt_solve")
             def solve_f64(rx, ry, rz_mod):
                 rhs = torch.cat([-rx, -ry, -rz_mod], dim=-1)
                 sol = torch.linalg.lu_solve(LU, piv,
@@ -889,6 +895,7 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                 dz_ = bd_mv(Tinv, bmv(A_in, dx_) + rz_) if mi else rz_
                 return dx_, dy_, dz_
 
+            @spanned("ipm.kkt_solve")
             def solve_f32(rx, ry, rz_mod):
                 dx, dy, dz = solve_cond(rx, ry, rz_mod)
                 # one refinement pass with the cached factors: near an
@@ -909,6 +916,7 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
 
             return solve_f32
 
+        @spanned("ipm.kkt_factor")
         def kkt_factor(T, Tinv, Bf):
             if dtype == torch.float64:
                 return factor_f64(T)
@@ -934,7 +942,9 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
             active = (status == MAX_ITERS) & (it < max_it) & (stall < 3)
             if not bool(active.any()):
                 return state
-            state = freeze(active, body(*state), state)
+            count("ipm_trips")
+            with span("ipm.iteration"):
+                state = freeze(active, body(*state), state)
 
     def solve(P, q, A, b, x0, y0, s0):
         dtype = q.dtype
@@ -947,6 +957,16 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
         A_in = A[:, p_eq:]
         b_in = b[:, p_eq:]
         kkt_factor = make_kkt_factor(P, A_eq, A_in)
+        # below f64 a trip also stalls when it leaves the lane's merit
+        # within 1 % of its best: near an exp block's boundary the f32
+        # directions can jam a lane at mu just above ipm_eps (or at ~1e-2,
+        # its dual block pressed against the boundary by the primal-
+        # barrier scaling) with steps of 1e-6..1e-2 that move nothing.
+        # Under the reference's rule alone (three steps under 1e-6) such
+        # a lane holds the whole batch's loop to ipm_max_iters; now its
+        # best iterate goes to the polish three trips later. f64 keeps
+        # the reference's rule, and its counts.
+        by_merit = dtype != torch.float64
 
         def residuals(x, y, z, s):
             rx = bmv(P, x) + q
@@ -1040,9 +1060,6 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
             z = torch.where(take, z + ae * dz, z)
             s = torch.where(take, s + ae * ds, s)
             it = it + 1
-            # consecutive rejected or zero steps mean the dtype's
-            # KKT-direction precision floor is reached
-            stall = torch.where(alpha_eff > 1e-6, 0, stall + 1)
 
             rx2, ry2, rz2 = residuals(x, y, z, s)
             mu2 = bdot(s, z) / degree
@@ -1058,6 +1075,12 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
             bx, by, bz, bs, bm = best
             merit = torch.maximum(torch.maximum(p_res, d_res), mu2.abs())
             better = merit < bm
+            # consecutive rejected or zero steps mean the dtype's
+            # KKT-direction precision floor is reached
+            moved = alpha_eff > 1e-6
+            if by_merit:
+                moved = moved & (merit < 0.99 * bm)
+            stall = torch.where(moved, 0, stall + 1)
             b1 = better[:, None]
             best = (
                 torch.where(b1, x, bx), torch.where(b1, y, by),

@@ -13,6 +13,7 @@ import torch
 
 from ..cones.dims import ConeDims
 from ..utils.precision import full_f32
+from ..utils.profiling import span
 from .admm import SolveResult, amax_abs, bdot, bmv, bmv_t, make_admm_solver
 from .kkt import make_kkt, make_kkt_precond, make_kkt_solver
 from .settings import MAX_ITERS, SOLVED
@@ -200,7 +201,8 @@ def make_polished_solver(dims: ConeDims, n: int, settings, base=None,
 
     def _solve(P, q, A, b, x0, y0, s0):
         res = base(P, q, A, b, x0, y0, s0)
-        x, y, s = refine(res.x, res.y, res.s, P, q, A, b)
+        with span("polish"):
+            x, y, s = refine(res.x, res.y, res.s, P, q, A, b)
         # the gap below is a cancellation of O(1) terms down to eps
         # scale: xPx in full f32
         with full_f32():

@@ -1,17 +1,28 @@
-"""Observability: phase timers, problem summaries, profiler annotations.
+"""Observability: phase timers, problem summaries, profiler annotations,
+and the solver's spans and counters.
 
 Counterpart of cvxpylayers_tpu/utils/profiling.py, on torch: a phase
 waits for the card's work on the tensors it is given before its clock
 stops, and an annotation is a `torch.profiler.record_function` range
 (plus an NVTX range where CUDA is present), so it shows by name in a
 `torch.profiler` trace.
+
+The solver marks its parts with `span(name)` (one IPM iteration, the
+scaling, the KKT factor and solves, the step-length search, the polish,
+the adjoint) and counts with `count(name)` (`ipm_trips`: trips of the
+IPM loop, so its slowest lane's iterations; `eigh`: calls of
+`torch.linalg.eigh`). Both do nothing, beyond one flag and one check of
+the profiler, unless a `recording()` is open or `torch.profiler`
+records: then a span is a profiler range named `cvxpylayers.<name>`,
+and inside `recording()` its time is kept and the counters count.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
-from typing import Dict
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -71,6 +82,93 @@ def trace_annotation(name: str):
         if torch.cuda.is_available():
             stack.enter_context(torch.cuda.nvtx.range(name))
         yield
+
+
+SPAN_PREFIX = "cvxpylayers."
+
+
+class Recording:
+    """The counters and span times of the solver while it is open.
+
+    On a CUDA `device` a span is timed by two CUDA events on the current
+    stream, so it covers the device work queued inside it (or, where the
+    device waits on the host, the host's time); otherwise by the host
+    clock. Read `span_ms()` after the device has finished the work."""
+
+    def __init__(self, device=None):
+        self.cuda = device is not None and torch.device(device).type == "cuda"
+        self.counts: Dict[str, int] = {}
+        self.marks: List[Tuple[str, object, object]] = []
+
+    def mark(self):
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            return ev
+        return time.perf_counter()
+
+    def span_ms(self) -> Dict[str, float]:
+        """Milliseconds inside each span, summed over its openings."""
+        out: Dict[str, float] = {}
+        for name, t0, t1 in self.marks:
+            ms = t0.elapsed_time(t1) if self.cuda else (t1 - t0) * 1e3
+            out[name] = out.get(name, 0.0) + ms
+        return out
+
+
+_recordings: List[Recording] = []
+_OFF = contextlib.nullcontext()
+
+
+@contextlib.contextmanager
+def recording(device=None):
+    """Within the block the solver's counters count and its spans are
+    timed (into every recording open at the time); yields the
+    Recording."""
+    rec = Recording(device)
+    _recordings.append(rec)
+    try:
+        yield rec
+    finally:
+        _recordings.remove(rec)
+
+
+def count(name: str):
+    """Adds one to the counter `name` of every open recording."""
+    for rec in _recordings:
+        rec.counts[name] = rec.counts.get(name, 0) + 1
+
+
+def span(name: str):
+    """A context manager around one part of the solver: nothing unless a
+    recording is open or torch.profiler records."""
+    if not _recordings and not torch.autograd._profiler_enabled():
+        return _OFF
+    return _open_span(name)
+
+
+def spanned(name: str):
+    """Decorator: every call of the function inside `span(name)`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+@contextlib.contextmanager
+def _open_span(name: str):
+    recs = list(_recordings)
+    with contextlib.ExitStack() as stack:
+        if torch.autograd._profiler_enabled():
+            stack.enter_context(
+                torch.profiler.record_function(SPAN_PREFIX + name))
+        starts = [rec.mark() for rec in recs]
+        yield
+        for rec, t0 in zip(recs, starts):
+            rec.marks.append((name, t0, rec.mark()))
 
 
 def problem_summary(layer) -> dict:
