@@ -19,6 +19,8 @@ Blocks:
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -30,6 +32,7 @@ from .projections import (
     _group_runs,
     _pow_from_root,
     _pow_solve_root,
+    device_constant,
     eigh,
     svec_indices,
     svec_to_sym,
@@ -90,7 +93,7 @@ def dproj_soc(v: torch.Tensor) -> torch.Tensor:
     t, _, r, safe_r, xh = _soc_parts(v)
     eye = torch.eye(d, dtype=v.dtype, device=v.device)
     J = torch.zeros(v.shape + (d,), dtype=v.dtype, device=v.device)
-    J[..., 0, 0] = 0.5
+    J[..., 0, 0].fill_(0.5)
     J[..., 0, 1:] = 0.5 * xh
     J[..., 1:, 0] = 0.5 * xh
     tr = (t / safe_r)[..., None, None]
@@ -156,15 +159,19 @@ def dproj_psd_svec(v: torch.Tensor, s: int) -> torch.Tensor:
     return cols.mT
 
 
-def _block_scatter_idx(off, d, nblk):
-    """Index arrays placing (nblk, d, d) blocks on the diagonal of an
-    (m, m) matrix in one scatter."""
+@functools.lru_cache(maxsize=256)
+def _block_scatter_idx(off, d, nblk, device):
+    """Index tensors on `device` placing (nblk, d, d) blocks on the
+    diagonal of an (m, m) matrix in one scatter; made once per argument
+    set, so the polish's CUDA graph capture (solver/refine.py) copies
+    nothing from the host."""
     base = off + np.arange(nblk)[:, None, None] * d
     ri = (base + np.arange(d)[None, :, None]
           + np.zeros((1, 1, d), np.int64)).reshape(-1)
     ci = (base + np.zeros((1, d, 1), np.int64)
           + np.arange(d)[None, None, :]).reshape(-1)
-    return ri, ci
+    return (torch.as_tensor(ri, device=device),
+            torch.as_tensor(ci, device=device))
 
 
 def make_cone_dproj_factored(dims: ConeDims):
@@ -180,7 +187,7 @@ def make_cone_dproj_factored(dims: ConeDims):
         def factor_polyhedral(w: torch.Tensor) -> torch.Tensor:
             d = (w > 0).to(w.dtype)
             if n_zero:
-                d[..., :n_zero] = 0.0
+                d[..., :n_zero].zero_()
             return d
 
         def apply_polyhedral(state, v):
@@ -190,7 +197,6 @@ def make_cone_dproj_factored(dims: ConeDims):
 
     soc_runs = _group_runs(dims.soc)
     psd_runs = _group_runs(dims.psd)
-    pow_alphas = np.array(dims.pow3) if dims.pow3 else None
 
     def factor(w: torch.Tensor):
         B = w.shape[0]
@@ -216,7 +222,8 @@ def make_cone_dproj_factored(dims: ConeDims):
         if dims.pow3:
             npw = len(dims.pow3)
             ws = w[:, off:off + 3 * npw].reshape(B, npw, 3)
-            st.append(dproj_pow3(ws, pow_alphas))
+            alphas = device_constant(dims.pow3, w.dtype, w.device)
+            st.append(dproj_pow3(ws, alphas))
             off += 3 * npw
         return st
 
@@ -287,7 +294,6 @@ def make_cone_dproj_dense(dims: ConeDims):
     n_zero = dims.zero
     soc_runs = _group_runs(dims.soc)
     psd_runs = _group_runs(dims.psd)
-    pow_alphas = np.array(dims.pow3) if dims.pow3 else None
 
     def dproj(v: torch.Tensor) -> torch.Tensor:
         B = v.shape[0]
@@ -299,9 +305,8 @@ def make_cone_dproj_dense(dims: ConeDims):
             off += dims.nonneg
 
         def place(blocks, d, nblk):
-            ri, ci = _block_scatter_idx(off, d, nblk)
-            J[:, torch.as_tensor(ri, device=v.device),
-              torch.as_tensor(ci, device=v.device)] = blocks.reshape(B, -1)
+            ri, ci = _block_scatter_idx(off, d, nblk, v.device)
+            J[:, ri, ci] = blocks.reshape(B, -1)
 
         for d, nblk in soc_runs:
             seg = v[:, off:off + d * nblk].reshape(B, nblk, d)
@@ -319,7 +324,8 @@ def make_cone_dproj_dense(dims: ConeDims):
         if dims.pow3:
             npw = len(dims.pow3)
             seg = v[:, off:off + 3 * npw].reshape(B, npw, 3)
-            place(dproj_pow3(seg, pow_alphas), 3, npw)
+            alphas = device_constant(dims.pow3, v.dtype, v.device)
+            place(dproj_pow3(seg, alphas), 3, npw)
             off += 3 * npw
         return J
 
@@ -341,8 +347,7 @@ def _soc_spectral(wb: torch.Tensor):
     x = wb[..., 1:]
     r = torch.linalg.vector_norm(x, dim=-1)
     safe_r = torch.where(r > 0, r, 1.0)
-    e1 = torch.zeros(d - 1, dtype=dtype, device=wb.device)
-    e1[0] = 1.0
+    e1 = torch.eye(d - 1, dtype=dtype, device=wb.device)[0]
     xh = torch.where((r > 0)[..., None], x / safe_r[..., None], e1)
     # Householder v = xh + sign(xh_0) e1 (never degenerate); H = I - 2vv'
     # has first column -sign(xh_0) xh and remaining columns an
@@ -462,7 +467,6 @@ def make_cone_dproj_spectral(dims: ConeDims):
     m = dims.total
     soc_runs = _group_runs(dims.soc)
     psd_runs = _group_runs(dims.psd)
-    pow_alphas = np.array(dims.pow3) if dims.pow3 else None
 
     def spectral(w: torch.Tensor):
         B = w.shape[0]
@@ -473,9 +477,8 @@ def make_cone_dproj_spectral(dims: ConeDims):
         off = dims.zero  # zero rows keep Q = I, lam = 0
 
         def place(Qb, lamb, d, nblk):
-            ri, ci = _block_scatter_idx(off, d, nblk)
-            Q[:, torch.as_tensor(ri, device=dev),
-              torch.as_tensor(ci, device=dev)] = Qb.reshape(B, -1)
+            ri, ci = _block_scatter_idx(off, d, nblk, dev)
+            Q[:, ri, ci] = Qb.reshape(B, -1)
             lam[:, off:off + d * nblk] = lamb.reshape(B, -1)
 
         if dims.nonneg:
@@ -509,7 +512,8 @@ def make_cone_dproj_spectral(dims: ConeDims):
         if dims.pow3:
             npw = len(dims.pow3)
             seg = w[:, off:off + 3 * npw].reshape(B, npw, 3)
-            lamb, Qb = _sym_eig3(dproj_pow3(seg, pow_alphas))
+            alphas = device_constant(dims.pow3, dtype, dev)
+            lamb, Qb = _sym_eig3(dproj_pow3(seg, alphas))
             place(Qb, torch.clamp(lamb, 0.0, 1.0), 3, npw)
             off += 3 * npw
         return Q, lam

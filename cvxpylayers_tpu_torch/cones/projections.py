@@ -23,15 +23,25 @@ Layout convention for the product cone (matches ConeDims):
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Callable
 
-import numpy as np
 import torch
 
 from ..utils.precision import full_f32
 from ..utils.profiling import count
 from .dims import ConeDims
+
+
+@functools.lru_cache(maxsize=256)
+def device_constant(values: tuple, dtype: torch.dtype,
+                    device: torch.device) -> torch.Tensor:
+    """`values` as a tensor on `device`, copied from the host once per
+    (values, dtype, device): a CUDA graph capture of the polish
+    (solver/refine.py) may not copy from the host, and its eager first
+    run makes every such constant before the capture."""
+    return torch.as_tensor(values, dtype=dtype, device=device)
 
 
 def _root_iters(dtype):
@@ -505,7 +515,7 @@ def make_cone_projector(
         def project_polyhedral(v: torch.Tensor) -> torch.Tensor:
             out = project_nonneg(v)
             if n_zero:
-                out[..., :n_zero] = 0.0
+                out[..., :n_zero].zero_()
             return out
 
         return project_polyhedral
@@ -513,7 +523,6 @@ def make_cone_projector(
     soc_runs = _group_runs(dims.soc)
     psd_runs = _group_runs(dims.psd)
     psd_proj = project_psd_svec_ns if psd_mode == "ns" else project_psd_svec
-    pow_alphas = np.array(dims.pow3) if dims.pow3 else None
 
     def project(v: torch.Tensor) -> torch.Tensor:
         B = v.shape[0]
@@ -541,8 +550,7 @@ def make_cone_projector(
         if dims.pow3:
             npw = len(dims.pow3)
             seg = v[:, off:off + 3 * npw].reshape(B, npw, 3)
-            alphas = torch.as_tensor(pow_alphas, dtype=v.dtype,
-                                     device=v.device)
+            alphas = device_constant(dims.pow3, v.dtype, v.device)
             parts.append(project_pow3(seg, alphas).reshape(B, -1))
             off += 3 * npw
         if not parts:

@@ -5,15 +5,21 @@ accuracy linearly; a few damped Newton steps on the KKT residual map
 (solver/kkt.py) then converge superlinearly. Every decision (the damping
 ladder, the escape step, best-iterate tracking, the final status) is
 taken per lane with `torch.where`.
+
+So the polish reads the host nowhere, and on the card it runs as one
+CUDA graph per key (`GraphedPolish`): its thousands of small kernels are
+launched by one replay instead of one Python dispatch each.
 """
 
 from __future__ import annotations
+
+from collections import OrderedDict
 
 import torch
 
 from ..cones.dims import ConeDims
 from ..utils.precision import full_f32
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .admm import SolveResult, amax_abs, bdot, bmv, bmv_t, make_admm_solver
 from .kkt import make_kkt, make_kkt_precond, make_kkt_solver
 from .settings import MAX_ITERS, SOLVED
@@ -105,6 +111,123 @@ def _newton_polish_loop(residual, kkt_solve, n: int, steps: int,
     return refine_xw
 
 
+# polish graphs kept per refiner, least recently used out first: a caller
+# that cycles through batch sizes (the scheduler's capacity classes)
+# holds at most this many
+_GRAPH_KEYS = 8
+
+
+def polish_graph_eligible(dims: ConeDims, device: torch.device,
+                          dtype: torch.dtype,
+                          requires_grad: bool = False) -> bool:
+    """Whether a polish of this cone program on tensors of this device
+    and dtype runs as a CUDA graph: on a CUDA device; below float64 (the
+    f64 KKT solve reads the host and caches its Jacobian there); with no
+    PSD block (its eigh reads the device); with no input that autograd
+    records (a replay records no history); and not inside another
+    capture."""
+    return (device.type == "cuda" and dtype != torch.float64
+            and not dims.psd
+            and not (requires_grad and torch.is_grad_enabled())
+            and not (torch.cuda.is_available()
+                     and torch.cuda.is_current_stream_capturing()))
+
+
+def polish_graph_key(args) -> tuple:
+    """What fixes the kernels a captured polish holds: the device, each
+    input's dtype, shape and strides, and the float32 matmul precision
+    in force."""
+    return (args[0].device,
+            tuple((a.dtype, tuple(a.shape), a.stride()) for a in args),
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
+class GraphLRU:
+    """At most `size` entries; `get` marks its entry the most recently
+    used, `put` evicts the least recently used past the bound."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self.items = OrderedDict()
+
+    def __len__(self):
+        return len(self.items)
+
+    def get(self, key):
+        entry = self.items.get(key)
+        if entry is not None:
+            self.items.move_to_end(key)
+        return entry
+
+    def put(self, key, entry):
+        self.items[key] = entry
+        self.items.move_to_end(key)
+        while len(self.items) > self.size:
+            self.items.popitem(last=False)
+
+
+class GraphedPolish:
+    """refine(x, y, s, P, q, A, b) -> (x, y, s), replayed as a CUDA graph
+    where `polish_graph_eligible` holds, and run eagerly (`fn`)
+    everywhere else.
+
+    The first call with a key runs `fn` eagerly on a side stream (its
+    answer is this call's), then captures `fn` on static copies of the
+    inputs into a graph with its own memory pool. Every later call with
+    that key copies its inputs into the static buffers, replays, and
+    returns clones of the static outputs, which the next replay
+    overwrites. A replay runs the same kernels on the same inputs in the
+    same order, so its outputs equal the eager polish's bitwise."""
+
+    def __init__(self, fn, dims: ConeDims):
+        self.fn = fn
+        self.dims = dims
+        self.graphs = GraphLRU(_GRAPH_KEYS)
+        self._streams = {}  # device -> the side stream of every capture
+
+    def __call__(self, *args):
+        count("polish_calls")
+        x = args[0]
+        if not polish_graph_eligible(
+                self.dims, x.device, x.dtype,
+                any(a.requires_grad for a in args)):
+            return self.fn(*args)
+        key = polish_graph_key(args)
+        entry = self.graphs.get(key)
+        if entry is None:
+            with torch.cuda.device(x.device):
+                out, entry = self._capture(args)
+            self.graphs.put(key, entry)
+            return out
+        graph, static_in, static_out = entry
+        for buf, a in zip(static_in, args):
+            buf.copy_(a)
+        graph.replay()
+        count("polish_graph_replays")
+        return tuple(t.clone() for t in static_out)
+
+    def _capture(self, args):
+        dev = args[0].device
+        side = self._streams.get(dev)
+        if side is None:
+            side = self._streams[dev] = torch.cuda.Stream(dev)
+        main = torch.cuda.current_stream(dev)
+        static_in = tuple(a.clone() for a in args)
+        side.wait_stream(main)
+        # the warm-up on the capture's stream makes the library handles,
+        # workspaces and device constants outside the capture
+        with torch.cuda.stream(side):
+            out = self.fn(*args)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            static_out = self.fn(*static_in)
+        main.wait_stream(side)
+        for t in out:
+            t.record_stream(main)
+        return out, (graph, static_in, tuple(static_out))
+
+
 def make_refiner(dims: ConeDims, n: int, steps: int,
                  schur_iters: int = 0, cg_iters: int = 40,
                  p_diag_full: bool = True, p_diag_only: bool = False,
@@ -166,7 +289,7 @@ def make_refiner(dims: ConeDims, n: int, steps: int,
         s_, y_ = split(w_)
         return x_, y_, s_
 
-    return refine
+    return GraphedPolish(refine, dims) if steps > 0 else refine
 
 
 def make_polished_solver(dims: ConeDims, n: int, settings, base=None,
