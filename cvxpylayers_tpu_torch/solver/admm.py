@@ -21,12 +21,13 @@ array carries the batch axis first (B instances of one structure):
     in batched torch ops instead (the reference's Pallas kernel, like K1,
     computes only the plain scan);
   * residuals with the duality gap, Banjac-style infeasibility
-    certificates and adaptive rho at every epoch boundary.
+    certificates and adaptive rho at every epoch boundary, by the rule
+    of solver/stopping.py.
 
 Statuses are returned as codes, never raised. Lanes are frozen once they
-finish: the epoch loop keeps an `active` mask, (status == MAX_ITERS) &
-(it < max_iters), and updates only active lanes, as the reference's
-vmapped while_loop does, so outputs and iteration counts match it.
+finish (stopping.run_lanes): an epoch updates only the lanes with
+(status == MAX_ITERS) & (it < max_iters), as the reference's vmapped
+while_loop does, so outputs and iteration counts match it.
 """
 
 from __future__ import annotations
@@ -41,12 +42,18 @@ from ..cones.projections import make_cone_projector, make_inner_projector
 from ..utils.precision import full_f32
 from .batched_linalg import spd_inv_via_chol
 from .cuda_admm import polyhedral_inner_epoch
-from .settings import (
-    DUAL_INFEASIBLE,
-    MAX_ITERS,
-    PRIMAL_INFEASIBLE,
-    SOLVED,
-    SolverSettings,
+from .settings import MAX_ITERS, SolverSettings
+from .stopping import (
+    amax_abs,  # noqa: F401 (re-exported: stays importable from here)
+    banjac,
+    bdot,
+    epoch_status,
+    kkt_scales,
+    rho_ratio,
+    rho_step,
+    run_lanes,
+    unfinished,
+    within,
 )
 
 
@@ -67,18 +74,6 @@ def bmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 def bmv_t(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Batched transposed product: (B, r, c)' @ (B, r) -> (B, c)."""
     return torch.bmm(v.unsqueeze(1), M).squeeze(1)
-
-
-def amax_abs(v: torch.Tensor) -> torch.Tensor:
-    """max |v| over the last axis, 0 for an empty axis: (B, k) -> (B,)."""
-    if v.shape[-1] == 0:
-        return v.new_zeros(v.shape[:-1])
-    return v.abs().amax(dim=-1)
-
-
-def bdot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Per-lane inner product over the last axis: (B, k) -> (B,)."""
-    return (u * v).sum(dim=-1)
 
 
 def _cone_row_groups(dims: ConeDims):
@@ -288,30 +283,6 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
             y_u = (E * yb) / c[:, None]
             return xu, s_u, y_u
 
-        def residuals(xb, zb, yb):
-            xu, s_u, y_u = unscaled(xb, zb, yb)
-            Ax = bmv(A0, xu)
-            r_p = amax_abs(Ax + s_u - b0)
-            p_sc = torch.maximum(
-                amax_abs(Ax), torch.maximum(amax_abs(s_u), amax_abs(b0))
-            )
-            Px = bmv(P0, xu)
-            Aty = bmv_t(A0, y_u)
-            r_d = amax_abs(Px + q0 + Aty)
-            d_sc = torch.maximum(
-                amax_abs(Px), torch.maximum(amax_abs(Aty), amax_abs(q0))
-            )
-            # duality gap: infinity-norm residuals alone pass far-from-
-            # optimal points on large problems; the xPx cancellation is
-            # pinned to full f32
-            with full_f32():
-                xPx = bdot(xu, bmv(P0, xu))
-            pobj = 0.5 * xPx + bdot(q0, xu)
-            dobj = -0.5 * xPx - bdot(b0, y_u)
-            gap = torch.abs(pobj - dobj)
-            g_sc = torch.maximum(torch.abs(pobj), torch.abs(dobj))
-            return r_p, p_sc, r_d, d_sc, gap, g_sc
-
         def run_epoch(x_, z_, y_, minv, rho_):
             return polyhedral_inner_epoch(
                 minv, As, qs, bs, rho_, x_.contiguous(), z_.contiguous(),
@@ -379,94 +350,31 @@ def make_admm_solver(dims: ConeDims, n: int, settings: SolverSettings,
         else:
             epoch_step = run_epoch if polyhedral else run_epoch_plain
 
-        def epoch_body(x_, z_, y_, rho_, it):
+        def epoch_body(x_, z_, y_, rho_, it, _status):
             minv = factor(Ps, As, rho_)
             x_prev, y_prev = x_, y_
             x_, z_, y_ = epoch_step(x_, z_, y_, minv, rho_)
-            it = it + st.epoch
-
-            r_p, p_sc, r_d, d_sc, gap, g_sc = residuals(x_, z_, y_)
-            eps_p = st.admm_eps_abs + st.admm_eps_rel * p_sc
-            eps_d = st.admm_eps_abs + st.admm_eps_rel * d_sc
-            eps_g = st.eps_gap_scale * (
-                st.admm_eps_abs + st.admm_eps_rel * g_sc
-            )
-            converged = (r_p <= eps_p) & (r_d <= eps_d) & (gap <= eps_g)
-
-            # ---- infeasibility certificates (unscaled deltas) ---------
+            xu, s_u, y_u = unscaled(x_, z_, y_)
+            sc = kkt_scales(bmv(A0, xu), s_u, b0, bmv(P0, xu),
+                            bmv_t(A0, y_u), q0, xu, y_u)
+            converged = within(sc, st.admm_eps_abs, st.admm_eps_rel,
+                               st.eps_gap_scale)
+            # infeasibility certificates on the unscaled deltas
             dxu = D * (x_ - x_prev)
             dyu = (E * (y_ - y_prev)) / c[:, None]
-            ny = amax_abs(dyu)
-            nx = amax_abs(dxu)
-            safe_ny = torch.where(ny > 0, ny, 1.0)
-            safe_nx = torch.where(nx > 0, nx, 1.0)
-            eps_inf = st.eps_infeas
-            # primal infeasible: A'dy ~ 0, dy in K*, b'dy < 0
-            Atdy = bmv_t(A0, dyu)
-            proj_dual_dy = dyu + proj_K(-dyu)  # Pi_{K*}(dy) via Moreau
-            dual_dist = amax_abs(proj_dual_dy - dyu)
-            pinf = (
-                (ny > 10 * eps_inf)
-                & (amax_abs(Atdy) <= eps_inf * safe_ny)
-                & (dual_dist <= eps_inf * safe_ny)
-                & (bdot(b0, dyu) < -eps_inf * safe_ny)
-            )
-            # dual infeasible: P dx ~ 0, q'dx < 0, A dx in rec(C) = -K
-            Adx = bmv(A0, dxu)
-            rec_dist = amax_abs(-proj_K(-Adx) - Adx)
-            dinf = (
-                (nx > 10 * eps_inf)
-                & (amax_abs(bmv(P0, dxu)) <= eps_inf * safe_nx)
-                & (rec_dist <= eps_inf * safe_nx)
-                & (bdot(q0, dxu) < -eps_inf * safe_nx)
-            )
-
-            status = torch.full_like(it, MAX_ITERS)
-            status = torch.where(dinf, DUAL_INFEASIBLE, status)
-            status = torch.where(pinf, PRIMAL_INFEASIBLE, status)
-            status = torch.where(converged, SOLVED, status).to(torch.int32)
-
-            # ---- adaptive rho -----------------------------------------
+            pinf, dinf = banjac(dxu, dyu, bmv_t(A0, dyu), bmv(A0, dxu),
+                                bmv(P0, dxu), b0, q0, proj_K, st.eps_infeas)
             if st.adaptive_rho:
-                ratio = torch.sqrt(
-                    torch.clamp_min(
-                        r_p / torch.where(p_sc > 1e-12, p_sc, 1.0), 1e-10
-                    )
-                    / torch.clamp_min(
-                        r_d / torch.where(d_sc > 1e-12, d_sc, 1.0), 1e-10
-                    )
-                )
-                ratio = torch.clamp(
-                    ratio, 1.0 / st.adaptive_rho_clamp, st.adaptive_rho_clamp
-                )
-                update = (ratio > st.adaptive_rho_tol) | (
-                    ratio < 1.0 / st.adaptive_rho_tol
-                )
-                rho_ = torch.where(
-                    update[:, None],
-                    torch.clamp(rho_ * ratio[:, None], st.rho_min,
-                                st.rho_max),
-                    rho_,
-                )
-            return x_, z_, y_, rho_, it, status
+                rho_ = rho_step(rho_, rho_ratio(sc, st)[:, None], st)
+            return (x_, z_, y_, rho_, it + st.epoch,
+                    epoch_status(converged, pinf, dinf))
 
         it = torch.zeros(B, dtype=torch.int32, device=device)
         status = torch.full((B,), MAX_ITERS, dtype=torch.int32,
                             device=device)
-        while True:
-            active = (status == MAX_ITERS) & (it < st.max_iters)
-            if not bool(active.any()):
-                break
-            x_n, z_n, y_n, rho_n, it_n, status_n = epoch_body(
-                x, z, y, rho, it
-            )
-            a1 = active[:, None]
-            x = torch.where(a1, x_n, x)
-            z = torch.where(a1, z_n, z)
-            y = torch.where(a1, y_n, y)
-            rho = torch.where(a1, rho_n, rho)
-            it = torch.where(active, it_n, it)
-            status = torch.where(active, status_n, status)
+        x, z, y, rho, it, status = run_lanes(
+            epoch_body, (x, z, y, rho, it, status),
+            unfinished(st.max_iters))
 
         xu, s_u, y_u = unscaled(x, z, y)
         pobj = 0.5 * bdot(xu, bmv(P0, xu)) + bdot(q0, xu)

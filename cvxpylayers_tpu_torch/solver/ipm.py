@@ -47,10 +47,11 @@ Every array carries the batch axis first. Lanes are frozen as the
 reference's vmapped while_loop freezes them: a lane stops once its
 status leaves MAX_ITERS, its count reaches ipm_max_iters or it stalls
 three times in a row, and from then on its iterate, count, stall
-counter and best iterate no longer change. The loop reads one `any()`
-per iteration from the device to know when every lane has stopped; on a
-program with PSD blocks each `torch.linalg.eigh` / `eigvalsh` call reads
-it once more (it checks convergence).
+counter and best iterate no longer change. The loop
+(`stopping.run_lanes`) reads one `any()` per iteration from the device
+to know when every lane has stopped; on a program with PSD blocks each
+`torch.linalg.eigh` / `eigvalsh` call reads it once more (it checks
+convergence).
 
 The embedding (`hsde=True`, P = 0) adds the homogenizing pair (tau,
 kappa), one (B,) vector each: infeasibility becomes an intrinsic verdict
@@ -92,8 +93,8 @@ from ..cones.projections import (
     sym_to_svec,
 )
 from ..utils.precision import full_f32
-from ..utils.profiling import count, span, spanned
-from .admm import SolveResult, amax_abs, bdot, bmv, bmv_t
+from ..utils.profiling import count, spanned
+from .admm import SolveResult, bmv, bmv_t
 from .batched_linalg import use_masked
 from .cuda_linalg import qr_r
 from .settings import (
@@ -103,11 +104,23 @@ from .settings import (
     SOLVED,
     SolverSettings,
 )
+from .stopping import amax_abs, bdot, run_lanes
 
 _TINY = 1e-30
 
 # the step acceptance's candidates, as fractions of the ratio-test step
 _CANDIDATES = (0.125, 0.25, 0.5, 1.0)
+
+
+def _trip(body):
+    """body as one trip of the IPM loop: counted (`ipm_trips`) and
+    inside the span `ipm.iteration`."""
+    traced = spanned("ipm.iteration")(body)
+
+    def trip(*state):
+        count("ipm_trips")
+        return traced(*state)
+    return trip
 
 
 def _nan_unless(info: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
@@ -927,24 +940,11 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
     def warm_norm(x0, y0, s0):
         return amax_abs(x0) + amax_abs(s0) + amax_abs(y0)
 
-    def freeze(active, new, old):
-        """Keep a stopped lane's old value (a tensor or a tuple of them)."""
-        if isinstance(new, tuple):
-            return tuple(freeze(active, a, b) for a, b in zip(new, old))
-        mask = active.view((-1,) + (1,) * (new.dim() - 1))
-        return torch.where(mask, new, old)
-
-    def run(body, state):
-        """Iterate body over the lanes still active; state is a tuple
-        (..., it, status, stall, best) of per-lane tensors."""
-        while True:
-            it, status, stall = state[-4:-1]
-            active = (status == MAX_ITERS) & (it < max_it) & (stall < 3)
-            if not bool(active.any()):
-                return state
-            count("ipm_trips")
-            with span("ipm.iteration"):
-                state = freeze(active, body(*state), state)
+    def active_of(state):
+        """The lanes still iterating; state is a tuple (..., it, status,
+        stall, best) of per-lane tensors."""
+        it, status, stall = state[-4:-1]
+        return (status == MAX_ITERS) & (it < max_it) & (stall < 3)
 
     def solve(P, q, A, b, x0, y0, s0):
         dtype = q.dtype
@@ -1098,8 +1098,8 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                             device=device)
         stall = torch.zeros(nb, dtype=torch.int32, device=device)
         best = (x, y, z, s, q.new_full((nb,), torch.inf))
-        *_, it, status, _, best = run(
-            body, (x, y, z, s, it, status, stall, best))
+        *_, it, status, _, best = run_lanes(
+            _trip(body), (x, y, z, s, it, status, stall, best), active_of)
         x, y, z, s, _ = best
 
         y_full = torch.cat([y, z], dim=-1)
@@ -1285,8 +1285,9 @@ def make_ipm_solver(dims: ConeDims, n: int, settings: SolverSettings,
                             device=device)
         stall = torch.zeros(nb, dtype=torch.int32, device=device)
         best = (x, y, z, s, tau, q.new_full((nb,), torch.inf))
-        x, y, z, s, tau, kap, it, status, stall, best = run(
-            body, (x, y, z, s, tau, kap, it, status, stall, best))
+        x, y, z, s, tau, kap, it, status, stall, best = run_lanes(
+            _trip(body), (x, y, z, s, tau, kap, it, status, stall, best),
+            active_of)
         bx, by, bz, bs, btau, _ = best
         # solved path: the tau-normalized best iterate; on an
         # infeasibility verdict the LAST iterate unscaled, which is the

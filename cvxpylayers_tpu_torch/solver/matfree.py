@@ -38,16 +38,22 @@ import torch
 from ..cones.dims import ConeDims
 from ..cones.jacobians import make_cone_dproj_factored
 from ..cones.projections import make_cone_projector, make_inner_projector
-from .admm import SolveResult, _cone_row_groups, amax_abs, bdot
+from .admm import SolveResult, _cone_row_groups
 from .linsolve import _cg_normal, _cg_spd, _cg_spd_warm
 from .pdhg import make_pdhg_core
 from .refine import _ESCAPE_STEP, _newton_polish_loop
-from .settings import (
-    DUAL_INFEASIBLE,
-    MAX_ITERS,
-    PRIMAL_INFEASIBLE,
-    SOLVED,
-    SolverSettings,
+from .settings import MAX_ITERS, SolverSettings
+from .stopping import (
+    banjac,
+    bdot,
+    certified,
+    epoch_status,
+    kkt_scales,
+    rho_ratio,
+    rho_step,
+    run_lanes,
+    unfinished,
+    within,
 )
 
 # dense per-instance assembly above this m*n footprint switches the layer
@@ -313,26 +319,6 @@ def make_matfree_admm_solver(ops: SparseOps, dims: ConeDims, n: int,
         def unscaled(xb, zb, yb):
             return D * xb, (bs - zb) / E, (E * yb) / c[:, None]
 
-        def residuals(xb, zb, yb):
-            xu, s_u, y_u = unscaled(xb, zb, yb)
-            Ax = ops.A_mv(Ad0, xu)
-            r_p = amax_abs(Ax + s_u - b0)
-            p_sc = torch.maximum(
-                amax_abs(Ax), torch.maximum(amax_abs(s_u), amax_abs(b0)))
-            Px = ops.P_mv(Pd0, xu)
-            Aty = ops.A_rmv(Ad0, y_u)
-            r_d = amax_abs(Px + q0 + Aty)
-            d_sc = torch.maximum(
-                amax_abs(Px), torch.maximum(amax_abs(Aty), amax_abs(q0)))
-            # duality gap: at matrix-free scale the infinity-norm
-            # residuals bound nothing on their own
-            xPx = bdot(xu, Px)
-            pobj = 0.5 * xPx + bdot(q0, xu)
-            dobj = -0.5 * xPx - bdot(b0, y_u)
-            gap = torch.abs(pobj - dobj)
-            g_sc = torch.maximum(torch.abs(pobj), torch.abs(dobj))
-            return r_p, p_sc, r_d, d_sc, gap, g_sc
-
         def M_mv(v, rho_):
             Av = ops.A_mv(Ads, v)
             return (ops.P_mv(Pds, v) + st.sigma * v
@@ -341,7 +327,7 @@ def make_matfree_admm_solver(ops: SparseOps, dims: ConeDims, n: int,
         def proj_C(u):
             return bs - pk_fast(bs - u)
 
-        def epoch_body(x_, z_, y_, xt, rho_, it):
+        def epoch_body(x_, z_, y_, xt, rho_, it, _status):
             x_prev, y_prev = x_, y_
             for _ in range(st.epoch):
                 rhs = st.sigma * x_ - qs + ops.A_rmv(Ads, rho_ * z_ - y_)
@@ -353,79 +339,28 @@ def make_matfree_admm_solver(ops: SparseOps, dims: ConeDims, n: int,
                 z_ = proj_C(w)
                 y_ = rho_ * (w - z_)
                 xt = x_t
-            it = it + st.epoch
-
-            r_p, p_sc, r_d, d_sc, gap, g_sc = residuals(x_, z_, y_)
-            eps_p = st.admm_eps_abs + st.admm_eps_rel * p_sc
-            eps_d = st.admm_eps_abs + st.admm_eps_rel * d_sc
-            eps_g = st.eps_gap_scale * (
-                st.admm_eps_abs + st.admm_eps_rel * g_sc)
-            converged = (r_p <= eps_p) & (r_d <= eps_d) & (gap <= eps_g)
-
-            # infeasibility certificates (unscaled deltas), the dense
-            # solver's tests through matvecs
+            xu, s_u, y_u = unscaled(x_, z_, y_)
+            sc = kkt_scales(ops.A_mv(Ad0, xu), s_u, b0, ops.P_mv(Pd0, xu),
+                            ops.A_rmv(Ad0, y_u), q0, xu, y_u)
+            converged = within(sc, st.admm_eps_abs, st.admm_eps_rel,
+                               st.eps_gap_scale)
+            # infeasibility certificates on the unscaled deltas
             dxu = D * (x_ - x_prev)
             dyu = (E * (y_ - y_prev)) / c[:, None]
-            ny = amax_abs(dyu)
-            nx = amax_abs(dxu)
-            safe_ny = torch.where(ny > 0, ny, 1.0)
-            safe_nx = torch.where(nx > 0, nx, 1.0)
-            eps_inf = st.eps_infeas
-            Atdy = ops.A_rmv(Ad0, dyu)
-            proj_dual_dy = dyu + proj_K(-dyu)
-            dual_dist = amax_abs(proj_dual_dy - dyu)
-            pinf = (
-                (ny > 10 * eps_inf)
-                & (amax_abs(Atdy) <= eps_inf * safe_ny)
-                & (dual_dist <= eps_inf * safe_ny)
-                & (bdot(b0, dyu) < -eps_inf * safe_ny)
-            )
-            Adx = ops.A_mv(Ad0, dxu)
-            rec_dist = amax_abs(-proj_K(-Adx) - Adx)
-            dinf = (
-                (nx > 10 * eps_inf)
-                & (amax_abs(ops.P_mv(Pd0, dxu)) <= eps_inf * safe_nx)
-                & (rec_dist <= eps_inf * safe_nx)
-                & (bdot(q0, dxu) < -eps_inf * safe_nx)
-            )
-            status = torch.full_like(it, MAX_ITERS)
-            status = torch.where(dinf, DUAL_INFEASIBLE, status)
-            status = torch.where(pinf, PRIMAL_INFEASIBLE, status)
-            status = torch.where(converged, SOLVED, status).to(torch.int32)
-
+            pinf, dinf = banjac(dxu, dyu, ops.A_rmv(Ad0, dyu),
+                                ops.A_mv(Ad0, dxu), ops.P_mv(Pd0, dxu), b0,
+                                q0, proj_K, st.eps_infeas)
             if st.adaptive_rho and m:
-                ratio = torch.sqrt(
-                    torch.clamp_min(
-                        r_p / torch.where(p_sc > 1e-12, p_sc, 1.0), 1e-10)
-                    / torch.clamp_min(
-                        r_d / torch.where(d_sc > 1e-12, d_sc, 1.0), 1e-10)
-                )
-                ratio = torch.clamp(ratio, 1.0 / st.adaptive_rho_clamp,
-                                    st.adaptive_rho_clamp)
-                update = (ratio > st.adaptive_rho_tol) | (
-                    ratio < 1.0 / st.adaptive_rho_tol)
-                rho_ = torch.where(
-                    update[:, None],
-                    torch.clamp(rho_ * ratio[:, None], st.rho_min,
-                                st.rho_max),
-                    rho_,
-                )
-            return x_, z_, y_, xt, rho_, it, status
+                rho_ = rho_step(rho_, rho_ratio(sc, st)[:, None], st)
+            return (x_, z_, y_, xt, rho_, it + st.epoch,
+                    epoch_status(converged, pinf, dinf))
 
-        xt = x
         it = torch.zeros(B, dtype=torch.int32, device=device)
         status = torch.full((B,), MAX_ITERS, dtype=torch.int32,
                             device=device)
-        while True:
-            active = (status == MAX_ITERS) & (it < st.max_iters)
-            if not bool(active.any()):
-                break
-            new = epoch_body(x, z, y, xt, rho, it)
-            a1 = active[:, None]
-            x, z, y, xt, rho = (torch.where(a1, a, b_) for a, b_ in
-                                zip(new[:5], (x, z, y, xt, rho)))
-            it = torch.where(active, new[5], it)
-            status = torch.where(active, new[6], status)
+        x, z, y, _, _, it, status = run_lanes(
+            epoch_body, (x, z, y, x, rho, it, status),
+            unfinished(st.max_iters))
 
         xu, s_u, y_u = unscaled(x, z, y)
         pobj = 0.5 * bdot(xu, ops.P_mv(Pd0, xu)) + bdot(q0, xu)
@@ -598,33 +533,13 @@ def make_matfree_polished_solver(ops: SparseOps, dims: ConeDims, n: int,
             x, w = refine_xw(x, s - y, P_data, q, A_data, b)
             s, y = split(w)
 
-        Px = ops.P_mv(P_data, x)
-        xPx = bdot(x, Px)
-        pobj = 0.5 * xPx + bdot(q, x)
-        F = residual(x, s - y, P_data, q, A_data, b)
-        d_sc = torch.maximum(
-            amax_abs(Px),
-            torch.maximum(amax_abs(ops.A_rmv(A_data, y)), amax_abs(q)))
-        p_sc = torch.maximum(
-            amax_abs(ops.A_mv(A_data, x)),
-            torch.maximum(amax_abs(s), amax_abs(b)))
-        # duality-gap certificate: at 10^3-10^5 variables the infinity-
+        # the gap certifies too: at 10^3-10^5 variables the infinity-
         # norm residuals bound nothing (the gap scales with |x|_1, |y|_1)
-        dobj = -0.5 * xPx - bdot(b, y)
-        gap = torch.abs(pobj - dobj)
-        g_sc = torch.maximum(torch.abs(pobj), torch.abs(dobj))
-        ok = (
-            (amax_abs(F[:, :n]) <= settings.eps_abs + settings.eps_rel * d_sc)
-            & (amax_abs(F[:, n:])
-               <= settings.eps_abs + settings.eps_rel * p_sc)
-            & (gap <= settings.eps_gap_scale
-               * (settings.eps_abs + settings.eps_rel * g_sc))
-        )
-        status = torch.where(
-            (res.status == SOLVED) | (res.status == MAX_ITERS),
-            torch.where(ok, SOLVED, MAX_ITERS), res.status,
-        ).to(torch.int32)
-        return SolveResult(x=x, y=y, s=s, status=status, iters=res.iters,
-                           pobj=pobj)
+        sc = kkt_scales(ops.A_mv(A_data, x), s, b, ops.P_mv(P_data, x),
+                        ops.A_rmv(A_data, y), q, x, y,
+                        F=residual(x, s - y, P_data, q, A_data, b))
+        return SolveResult(x=x, y=y, s=s,
+                           status=certified(res.status, sc, settings),
+                           iters=res.iters, pobj=sc.pobj)
 
     return solve

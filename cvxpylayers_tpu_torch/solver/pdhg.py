@@ -17,7 +17,7 @@ with tau = sigma = 0.9 / ||A||_2 (12 rounds of power iteration, times a
 At every epoch boundary the lane keeps whichever of {last iterate,
 average} has the smaller combined residual (the restart of raPDHG); the
 residuals with the duality gap, the Banjac certificates and the statuses
-follow solver/admm.py, and a finished lane is frozen. The semismooth-
+are solver/stopping.py's, and a finished lane is frozen. The semismooth-
 Newton polish owns the final accuracy, as it does for ADMM.
 
 `make_pdhg_core` holds the algorithm over two matvec callables, so the
@@ -33,21 +33,17 @@ import torch
 from ..cones.dims import ConeDims
 from ..cones.projections import make_cone_projector, make_inner_projector
 from ..utils.precision import full_f32
-from .admm import (
-    SolveResult,
-    _cone_row_groups,
-    _ruiz_equilibrate,
-    amax_abs,
+from .admm import SolveResult, _cone_row_groups, _ruiz_equilibrate, bmv, bmv_t
+from .settings import MAX_ITERS, SolverSettings
+from .stopping import (
+    Scales,
+    banjac,
     bdot,
-    bmv,
-    bmv_t,
-)
-from .settings import (
-    DUAL_INFEASIBLE,
-    MAX_ITERS,
-    PRIMAL_INFEASIBLE,
-    SOLVED,
-    SolverSettings,
+    epoch_status,
+    kkt_scales,
+    run_lanes,
+    unfinished,
+    within,
 )
 
 # power-iteration rounds for the ||A||_2 estimate (fixed: no host read)
@@ -95,34 +91,24 @@ def make_pdhg_core(dims: ConeDims, n: int, settings: SolverSettings,
         def unscaled(xb, yb):
             return D * xb, (E * yb) / c[:, None]
 
-        def residuals(xb, yb):
+        def scales(xb, yb):
+            # P = 0: the gap keeps large-LP iterates far from optimal
+            # from passing on the residuals alone
             xu, yu = unscaled(xb, yb)
             Ax = A_mv(A0, xu)
-            s_u = proj_K(b0 - Ax)
-            r_p = amax_abs(Ax + s_u - b0)
-            p_sc = torch.maximum(
-                amax_abs(Ax), torch.maximum(amax_abs(s_u), amax_abs(b0)))
-            Aty = A_rmv(A0, yu)
-            r_d = amax_abs(q0 + Aty)
-            d_sc = torch.maximum(amax_abs(Aty), amax_abs(q0))
-            # duality gap (P = 0): large-LP iterates cannot pass on the
-            # residuals alone while far from optimal
-            pobj = bdot(q0, xu)
-            dobj = -bdot(b0, yu)
-            gap = torch.abs(pobj - dobj)
-            g_sc = torch.maximum(torch.abs(pobj), torch.abs(dobj))
-            return r_p, p_sc, r_d, d_sc, gap, g_sc
+            return kkt_scales(Ax, proj_K(b0 - Ax), b0, None, A_rmv(A0, yu),
+                              q0, xu, yu)
 
-        def merit(r_p, p_sc, r_d, d_sc, gap, g_sc):
+        def merit(sc):
             # the gap's scale is floored by the residual scales: on a
             # ~zero-objective problem objective noise would otherwise
             # decide the restart
-            g_f = torch.maximum(g_sc, torch.maximum(p_sc, d_sc))
-            return (r_p / torch.clamp_min(p_sc, 1e-12)
-                    + r_d / torch.clamp_min(d_sc, 1e-12)
-                    + gap / torch.clamp_min(g_f, 1e-12))
+            g_f = torch.maximum(sc.g_sc, torch.maximum(sc.p_sc, sc.d_sc))
+            return (sc.r_p / torch.clamp_min(sc.p_sc, 1e-12)
+                    + sc.r_d / torch.clamp_min(sc.d_sc, 1e-12)
+                    + sc.gap / torch.clamp_min(g_f, 1e-12))
 
-        def epoch_body(x_, y_, it):
+        def epoch_body(x_, y_, it, _status):
             x_prev, y_prev = x_, y_
             xa, ya = x_, y_
             for k in range(st.epoch):
@@ -134,65 +120,27 @@ def make_pdhg_core(dims: ConeDims, n: int, settings: SolverSettings,
                 xa = (k * xa + x_n) / (k + 1.0)
                 ya = (k * ya + y_n) / (k + 1.0)
                 x_, y_ = x_n, y_n
-            it = it + st.epoch
-            last = residuals(x_, y_)
-            avg = residuals(xa, ya)
-            use_avg = merit(*avg) < merit(*last)
+            last = scales(x_, y_)
+            avg = scales(xa, ya)
+            use_avg = merit(avg) < merit(last)
             x_ = torch.where(use_avg[:, None], xa, x_)
             y_ = torch.where(use_avg[:, None], ya, y_)
-            r_p, p_sc, r_d, d_sc, gap, g_sc = (
-                torch.where(use_avg, a, l_) for a, l_ in zip(avg, last))
-
-            eps_p = st.admm_eps_abs + st.admm_eps_rel * p_sc
-            eps_d = st.admm_eps_abs + st.admm_eps_rel * d_sc
-            eps_g = st.eps_gap_scale * (
-                st.admm_eps_abs + st.admm_eps_rel * g_sc)
-            converged = (r_p <= eps_p) & (r_d <= eps_d) & (gap <= eps_g)
-
+            sc = Scales(*(torch.where(use_avg, a, l_)
+                          for a, l_ in zip(avg, last)))
+            converged = within(sc, st.admm_eps_abs, st.admm_eps_rel,
+                               st.eps_gap_scale)
             # infeasibility certificates from the iterate differences
             dxu = D * (x_ - x_prev)
             dyu = (E * (y_ - y_prev)) / c[:, None]
-            ny = amax_abs(dyu)
-            nx = amax_abs(dxu)
-            safe_ny = torch.where(ny > 0, ny, 1.0)
-            safe_nx = torch.where(nx > 0, nx, 1.0)
-            eps_inf = st.eps_infeas
-            Atdy = A_rmv(A0, dyu)
-            proj_dual_dy = dyu + proj_K(-dyu)  # Pi_{K*}(dy) via Moreau
-            dual_dist = amax_abs(proj_dual_dy - dyu)
-            pinf = (
-                (ny > 10 * eps_inf)
-                & (amax_abs(Atdy) <= eps_inf * safe_ny)
-                & (dual_dist <= eps_inf * safe_ny)
-                & (bdot(b0, dyu) < -eps_inf * safe_ny)
-            )
-            Adx = A_mv(A0, dxu)
-            rec_dist = amax_abs(-proj_K(-Adx) - Adx)
-            dinf = (
-                (nx > 10 * eps_inf)
-                & (rec_dist <= eps_inf * safe_nx)
-                & (bdot(q0, dxu) < -eps_inf * safe_nx)
-            )
-            status = torch.full_like(it, MAX_ITERS)
-            status = torch.where(dinf, DUAL_INFEASIBLE, status)
-            status = torch.where(pinf, PRIMAL_INFEASIBLE, status)
-            status = torch.where(converged, SOLVED, status).to(torch.int32)
-            return x_, y_, it, status
+            pinf, dinf = banjac(dxu, dyu, A_rmv(A0, dyu), A_mv(A0, dxu),
+                                None, b0, q0, proj_K, st.eps_infeas)
+            return x_, y_, it + st.epoch, epoch_status(converged, pinf, dinf)
 
         it = torch.zeros(B, dtype=torch.int32, device=q.device)
         status = torch.full((B,), MAX_ITERS, dtype=torch.int32,
                             device=q.device)
-        # one host read per epoch: the gap-aware exit
-        while True:
-            active = (status == MAX_ITERS) & (it < st.max_iters)
-            if not bool(active.any()):
-                break
-            x_n, y_n, it_n, status_n = epoch_body(x, y, it)
-            a1 = active[:, None]
-            x = torch.where(a1, x_n, x)
-            y = torch.where(a1, y_n, y)
-            it = torch.where(active, it_n, it)
-            status = torch.where(active, status_n, status)
+        x, y, it, status = run_lanes(epoch_body, (x, y, it, status),
+                                     unfinished(st.max_iters))
 
         xu, yu = unscaled(x, y)
         # s from the constraint, projected into K

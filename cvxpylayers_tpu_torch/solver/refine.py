@@ -20,9 +20,9 @@ import torch
 from ..cones.dims import ConeDims
 from ..utils.precision import full_f32
 from ..utils.profiling import count, span
-from .admm import SolveResult, amax_abs, bdot, bmv, bmv_t, make_admm_solver
+from .admm import SolveResult, bmv, bmv_t, make_admm_solver
 from .kkt import make_kkt, make_kkt_precond, make_kkt_solver
-from .settings import MAX_ITERS, SOLVED
+from .stopping import certified, kkt_scales
 
 # Damping ladder for the Newton line search (each entry costs one cheap
 # residual eval). Monotone acceptance alone can freeze at nonsmooth kinks
@@ -302,7 +302,6 @@ def make_polished_solver(dims: ConeDims, n: int, settings, base=None,
     The final status is decided by the post-polish unscaled KKT residual
     and duality gap against settings.eps_abs/eps_rel; infeasibility
     verdicts of the base solver are kept."""
-    m = dims.total
     if base is None:
         base = make_admm_solver(dims, n, settings,
                                 masked_factor=masked_factor)
@@ -326,42 +325,10 @@ def make_polished_solver(dims: ConeDims, n: int, settings, base=None,
         res = base(P, q, A, b, x0, y0, s0)
         with span("polish"):
             x, y, s = refine(res.x, res.y, res.s, P, q, A, b)
-        # the gap below is a cancellation of O(1) terms down to eps
-        # scale: xPx in full f32
-        with full_f32():
-            xPx = bdot(x, bmv(P, x))
-        pobj = 0.5 * xPx + bdot(q, x)
-
-        F = residual(x, s - y, P, q, A, b)
-        F1 = F[:, :n]
-        F2 = F[:, n:]
-        d_sc = torch.maximum(
-            amax_abs(bmv(P, x)),
-            torch.maximum(amax_abs(bmv_t(A, y)), amax_abs(q)),
-        )
-        p_sc = torch.maximum(
-            amax_abs(bmv(A, x)),
-            torch.maximum(amax_abs(s), amax_abs(b)),
-        )
-        # duality-gap certificate: small infinity-norm residuals do not
-        # bound suboptimality when |x|_1 / |y|_1 are large
-        dobj = -0.5 * xPx - bdot(b, y)
-        gap = torch.abs(pobj - dobj)
-        g_sc = torch.maximum(torch.abs(pobj), torch.abs(dobj))
-        ok = (
-            (amax_abs(F1) <= settings.eps_abs + settings.eps_rel * d_sc)
-            & (amax_abs(F2) <= settings.eps_abs + settings.eps_rel * p_sc)
-            & (gap <= settings.eps_gap_scale
-               * (settings.eps_abs + settings.eps_rel * g_sc))
-        )
-        # keep infeasibility verdicts; otherwise status is the KKT check
-        kkt_status = torch.where(ok, SOLVED, MAX_ITERS)
-        status = torch.where(
-            (res.status == SOLVED) | (res.status == MAX_ITERS),
-            kkt_status, res.status,
-        ).to(torch.int32)
-        return SolveResult(
-            x=x, y=y, s=s, status=status, iters=res.iters, pobj=pobj
-        )
+        sc = kkt_scales(bmv(A, x), s, b, bmv(P, x), bmv_t(A, y), q, x, y,
+                        F=residual(x, s - y, P, q, A, b))
+        return SolveResult(x=x, y=y, s=s,
+                           status=certified(res.status, sc, settings),
+                           iters=res.iters, pobj=sc.pobj)
 
     return solve

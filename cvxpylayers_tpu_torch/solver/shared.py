@@ -33,13 +33,18 @@ import torch
 from ..cones.dims import ConeDims
 from ..cones.projections import make_cone_projector, make_inner_projector
 from ..utils.precision import full_f32
-from .admm import SolveResult, _cone_row_groups, amax_abs, bdot
-from .settings import (
-    DUAL_INFEASIBLE,
-    MAX_ITERS,
-    PRIMAL_INFEASIBLE,
-    SOLVED,
-    SolverSettings,
+from .admm import SolveResult, _cone_row_groups
+from .settings import MAX_ITERS, SolverSettings
+from .stopping import (
+    amax_abs,
+    banjac,
+    bdot,
+    epoch_status,
+    freeze,
+    kkt_scales,
+    rho_ratio,
+    rho_step,
+    within,
 )
 
 
@@ -169,30 +174,6 @@ def make_shared_admm_solver(dims: ConeDims, n: int,
             Yu = (Yb * E[None, :]) / c
             return Xu, Su, Yu
 
-        def residuals(Xb, Zb, Yb):
-            """Per-lane residuals and scales on the UNSCALED data: the
-            math of admm.residuals, batched."""
-            Xu, Su, Yu = unscaled(Xb, Zb, Yb)
-            AX = Xu @ A0.T
-            r_p = amax_abs(AX + Su - b)
-            p_sc = torch.maximum(
-                amax_abs(AX),
-                torch.maximum(amax_abs(Su), amax_abs(b)),
-            )
-            PX = Xu @ P0.T
-            ATY = Yu @ A0
-            r_d = amax_abs(PX + q + ATY)
-            d_sc = torch.maximum(
-                amax_abs(PX),
-                torch.maximum(amax_abs(ATY), amax_abs(q)),
-            )
-            xPx = bdot(Xu, PX)
-            pobj = 0.5 * xPx + bdot(q, Xu)
-            dobj = -0.5 * xPx - bdot(b, Yu)
-            gap = torch.abs(pobj - dobj)
-            g_sc = torch.maximum(torch.abs(pobj), torch.abs(dobj))
-            return r_p, p_sc, r_d, d_sc, gap, g_sc
-
         def inner(X_, Z_, Y_, Minv, rho):
             RHS = st.sigma * X_ - qs + (Z_ * rho[None, :] - Y_) @ As
             Xt = RHS @ Minv  # Minv symmetric
@@ -210,81 +191,32 @@ def make_shared_admm_solver(dims: ConeDims, n: int,
             for _ in range(st.epoch):
                 Xn, Zn, Yn = inner(Xn, Zn, Yn, Minv, rho)
             # freeze finished lanes (the vmapped while_loop's contract)
-            am = active[:, None]
-            X_ = torch.where(am, Xn, X_)
-            Z_ = torch.where(am, Zn, Z_)
-            Y_ = torch.where(am, Yn, Y_)
+            X_, Z_, Y_ = freeze(active, (Xn, Zn, Yn), (X_, Z_, Y_))
             it = it + torch.where(active, st.epoch, 0).to(torch.int32)
 
-            r_p, p_sc, r_d, d_sc, gap, g_sc = residuals(X_, Z_, Y_)
-            eps_p = st.admm_eps_abs + st.admm_eps_rel * p_sc
-            eps_d = st.admm_eps_abs + st.admm_eps_rel * d_sc
-            eps_g = st.eps_gap_scale * (
-                st.admm_eps_abs + st.admm_eps_rel * g_sc
-            )
-            converged = (r_p <= eps_p) & (r_d <= eps_d) & (gap <= eps_g)
-
-            # ---- Banjac certificates on the per-lane deltas ----------
+            # per-lane verdicts on the unscaled data (solver/stopping.py)
+            Xu, Su, Yu = unscaled(X_, Z_, Y_)
+            sc = kkt_scales(Xu @ A0.T, Su, b, Xu @ P0.T, Yu @ A0, q, Xu, Yu)
+            converged = within(sc, st.admm_eps_abs, st.admm_eps_rel,
+                               st.eps_gap_scale)
             dXu = (X_ - Xp) * D[None, :]
             dYu = ((Y_ - Yp) * E[None, :]) / c
-            ny = amax_abs(dYu)
-            nx = amax_abs(dXu)
-            safe_ny = torch.where(ny > 0, ny, 1.0)
-            safe_nx = torch.where(nx > 0, nx, 1.0)
-            eps_inf = st.eps_infeas
-            AtdY = dYu @ A0
-            proj_dual_dY = dYu + proj_K(-dYu)
-            dual_dist = amax_abs(proj_dual_dY - dYu)
-            pinf = (
-                (ny > 10 * eps_inf)
-                & (amax_abs(AtdY) <= eps_inf * safe_ny)
-                & (dual_dist <= eps_inf * safe_ny)
-                & (bdot(b, dYu) < -eps_inf * safe_ny)
-            )
-            AdX = dXu @ A0.T
-            rec_dist = amax_abs(-proj_K(-AdX) - AdX)
-            PdX = dXu @ P0.T
-            dinf = (
-                (nx > 10 * eps_inf)
-                & (amax_abs(PdX) <= eps_inf * safe_nx)
-                & (rec_dist <= eps_inf * safe_nx)
-                & (bdot(q, dXu) < -eps_inf * safe_nx)
-            )
-
-            new_status = torch.full_like(status, MAX_ITERS)
-            new_status = torch.where(dinf, DUAL_INFEASIBLE, new_status)
-            new_status = torch.where(pinf, PRIMAL_INFEASIBLE, new_status)
-            new_status = torch.where(converged, SOLVED, new_status)
-            status = torch.where(active, new_status, status).to(torch.int32)
+            pinf, dinf = banjac(dXu, dYu, dYu @ A0, dXu @ A0.T, dXu @ P0.T,
+                                b, q, proj_K, st.eps_infeas)
+            status = freeze(active, epoch_status(converged, pinf, dinf),
+                            status)
             active = status == MAX_ITERS
 
             # ---- pooled adaptive rho (one scalar step) -----------------
             if st.adaptive_rho:
-                ratio = torch.sqrt(
-                    torch.clamp_min(
-                        r_p / torch.where(p_sc > 1e-12, p_sc, 1.0), 1e-10
-                    )
-                    / torch.clamp_min(
-                        r_d / torch.where(d_sc > 1e-12, d_sc, 1.0), 1e-10
-                    )
-                )
-                ratio = torch.clamp(
-                    ratio, 1.0 / st.adaptive_rho_clamp,
-                    st.adaptive_rho_clamp,
-                )
-                # geometric mean over the still-active lanes; inert (= 1)
-                # when none is active
+                # geometric mean of the per-lane ratios over the still-
+                # active lanes; inert (= 1) when none is active
                 w_act = active.to(dtype)
                 n_act = torch.clamp_min(w_act.sum(), 1.0)
-                pooled = torch.exp((torch.log(ratio) * w_act).sum() / n_act)
-                update = (pooled > st.adaptive_rho_tol) | (
-                    pooled < 1.0 / st.adaptive_rho_tol
-                )
-                rho = torch.where(
-                    update & active.any(),
-                    torch.clamp(rho * pooled, st.rho_min, st.rho_max),
-                    rho,
-                )
+                pooled = torch.exp(
+                    (torch.log(rho_ratio(sc, st)) * w_act).sum() / n_act)
+                rho = torch.where(active.any(), rho_step(rho, pooled, st),
+                                  rho)
             return X_, Z_, Y_, rho, it, status, active
 
         it = torch.zeros(B, dtype=torch.int32, device=device)

@@ -10,19 +10,21 @@ on value tensors made by the port layer's `_assemble_sparse` from
 numpy-seeded parameters of tiny LAD, box-QP and transport (OT) programs,
 at f64: the Ruiz scaling within 1e-12, the matrix-free ADMM with its
 polish (statuses and iteration counts equal on every lane, x, y, s
-within 1e-8), the KKT solve on both of its branches (the exact Schur
-split for a diagonal P and polyhedral cones; CG on the normal equations
-for an SOC program) in both directions, and both derivative rules with
-respect to the data vectors (the adjoint through torch.autograd against
-jax.vjp, the forward-mode rule against jax.jvp) within 1e-8. Layers with
-assembly="sparse" match the reference's outputs and gradients within
-1e-6; "auto" takes the route above m n = 2^16 as the reference does;
-rescue and warm start run on the route; the IPM refuses it, as in the
-reference.
+within 1e-8), its infeasibility certificates (the dense solver test's
+primal infeasible, unbounded and solved lanes on one static pattern:
+statuses and iteration counts equal), the KKT solve on both of its
+branches (the exact Schur split for a diagonal P and polyhedral cones;
+CG on the normal equations for an SOC program) in both directions, and
+both derivative rules with respect to the data vectors (the adjoint
+through torch.autograd against jax.vjp, the forward-mode rule against
+jax.jvp) within 1e-8. Layers with assembly="sparse" match the
+reference's outputs and gradients within 1e-6; "auto" takes the route
+above m n = 2^16 as the reference does; rescue and warm start run on
+the route; the IPM refuses it, as in the reference.
 
 Reference configurations compiled: the operators and the Ruiz scaling in
-one function, three polished solvers, two KKT solvers, the two
-derivative rules, two sparse layers.
+one function, four polished solvers and one ADMM solver, two KKT
+solvers, the two derivative rules, two sparse layers.
 """
 
 import functools
@@ -44,6 +46,11 @@ from cvxpylayers_tpu_torch.cones.dims import ConeDims as TDims
 from cvxpylayers_tpu_torch.diff.derivative import make_matfree_diff_solver
 from cvxpylayers_tpu_torch.solver import matfree as tm
 from cvxpylayers_tpu_torch.solver.admm import _cone_row_groups
+from cvxpylayers_tpu_torch.solver.settings import (
+    DUAL_INFEASIBLE,
+    PRIMAL_INFEASIBLE,
+    SOLVED,
+)
 from cvxpylayers_tpu_torch.solver.settings import SolverSettings as TSettings
 
 # tiny tensors: more threads only contend with the other test workers
@@ -276,6 +283,51 @@ def test_matfree_admm_with_polish_matches_reference(name):
         np.testing.assert_allclose(getattr(rt, k).numpy(),
                                    np.asarray(getattr(rj, k)), atol=1e-8,
                                    rtol=0, err_msg=k)
+
+
+def _three_lanes():
+    """tests/test_torch_port_solver.py's three lanes (primal infeasible,
+    unbounded, solved) on one static pattern, the union of the lanes'
+    nonzeros, with explicit zeros where a lane has none."""
+    n, m = 3, 9
+    P = np.zeros((3, n, n))
+    P[0, :2, :2] = np.eye(2)
+    P[2] = np.eye(n)
+    q = np.array([[0.3, -0.2, 0.0], [-1.0, 0.0, 0.0], [1.0, 0.0, 0.0]])
+    A = np.zeros((3, m, n))
+    b = np.ones((3, m))
+    A[2, 1, 0] = -1.0                       # x1 >= -1
+    A[:, 0, 2], b[:, 0] = 1.0, 0.0          # x3 = 0
+    A[0, 1, 0], b[0, 1] = -1.0, -1.0        # x1 >= 1
+    A[0, 2, 0], b[0, 2] = 1.0, -1.0         # x1 <= -1
+    A[1, 1, 1], b[1, 1] = 1.0, 1.0          # x2 <= 1
+    b[1, 2] = 0.0                           # 0 <= 0
+    ar, ac = np.nonzero((A != 0).any(axis=0))
+    pr, pc = np.nonzero((P != 0).any(axis=0))
+    zeros = (np.zeros((3, n)), np.zeros((3, m)), np.zeros((3, m)))
+    return ((ar, ac, m, n, pr, pc),
+            (P[:, pr, pc], q, A[:, ar, ac], b) + zeros)
+
+
+def test_sparse_route_infeasible_and_unbounded_statuses_match_reference():
+    # the matrix-free ADMM's certificates, and the polished solve that
+    # keeps its verdicts, against the reference's
+    pattern, args = _three_lanes()
+    n = pattern[3]
+    dims = dict(zero=1, nonneg=8)
+    for make_t, make_j in ((tm.make_matfree_admm_solver,
+                            jm.make_matfree_admm_solver),
+                           (tm.make_matfree_polished_solver,
+                            jm.make_matfree_polished_solver)):
+        rt = make_t(tm.SparseOps(*pattern), TDims(**dims), n, TSettings())(
+            *_t(*args))
+        rj = jax.jit(jax.vmap(make_j(jm.SparseOps(*pattern), JDims(**dims),
+                                     n, JSettings())))(*_j(*args))
+        np.testing.assert_array_equal(rt.status.numpy(),
+                                      np.asarray(rj.status))
+        np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters))
+        assert rt.status.tolist() == [PRIMAL_INFEASIBLE, DUAL_INFEASIBLE,
+                                      SOLVED]
 
 
 @pytest.mark.parametrize("name", ["box_qp", "ball"],
